@@ -6,16 +6,28 @@
 Phases, each printing JSON lines; any failed check exits non-zero:
   1. env      card name and power limit, torch / CUDA / nvcc versions, and
               the build of the hand-written kernels from csrc/
-  2. kernels  each kernel at the shapes of the 260,850-particle 3D dam break
-              (and a jittered copy): held against its plain PyTorch version
-              on the same inputs, timed with CUDA events, with its bound
-  3. parity   one FluidSim(method="pallas") step on the card against the
-              port's CPU path (2D n=600, 3D n=1,200), re-aligned by ids
+  2. kernels  the full-rebuild kernels at the shapes of the 260,850-particle
+              3D dam break (and a jittered copy): held against their plain
+              PyTorch versions on the same inputs, timed with CUDA events,
+              with their bounds
+  3. parity   one FluidSim(method="pallas") step and three
+              method="pallas_inc" steps on the card against the port's CPU
+              path (2D n=600, 3D n=1,200), re-aligned by ids
   4. run      200 steps of the 3D dam break (260,850 particles) and 20 of
-              the 3D double dam break (1,197,770 particles): overflow 0,
-              finite, in bounds, ids a permutation, and launch counts that
-              show every step went through every kernel
-  5. the kernels line, the card line, and the final ok line.
+              the 3D double dam break (1,197,770 particles) on "pallas";
+              then the double dam break through FluidSim(method="auto"),
+              which resolves to "pallas_inc", at bench.py's two operating
+              points: 100 warm steps on "pallas" then 200 timed ("early"),
+              on to 2,000 steps then 200 timed ("evolved").  Each run:
+              overflow 0, finite, in bounds, ids a permutation, and launch
+              counts that show every step went through every kernel; at
+              each point one inc.step_planes call runs under CUDA's sync
+              debug mode "error", where a wait for the card fails the run
+  5. kernels  the incremental path's kernels (and occ_rowmax, density) at
+              the double dam break's shapes, on the planes of the evolved
+              state and on a copy with numpy-seeded velocity noise (>= 1%
+              movers): against their plain versions, timed, with bounds
+  6. the kernels line, the card line, and the final ok line.
 Imports nothing of JAX or of gpufluidsimulator_tpu.
 """
 
@@ -34,6 +46,9 @@ F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 DENSITY_PAIR_FLOPS = 13
 FORCE_PAIR_FLOPS = 32
 REPS = 20
+WARM_EARLY = 100            # bench.py's operating points
+WARM_EVOLVED = 2000
+INC_STEPS = 200
 
 
 def emit(obj) -> None:
@@ -86,8 +101,10 @@ def phase_env(torch, ft_build):
     t0 = time.perf_counter()
     ft_build.library()
     secs = time.perf_counter() - t0
+    # per kernel instantiation: its (mangled) name, registers and spills
     ptxas = [ln.strip() for ln in ft_build.build_log["text"].splitlines()
-             if "registers" in ln or "spill" in ln or ln.startswith("==")]
+             if "registers" in ln or "spill" in ln or ln.startswith("==")
+             or "Compiling entry function" in ln]
     emit({"phase": "build", "seconds": round(secs, 3),
           "library": ft_build.build_log["path"], "ptxas": ptxas})
 
@@ -103,6 +120,43 @@ def stencil_pairs(torch, planes, geom):
     nbr = sum(sph._window(occ, geom, dz, dy, dx)
               for dz, dy, dx in sph._offsets(geom.dim))
     return float((centre * nbr).sum())
+
+
+def plane_touch(torch, planes, geom, region):
+    """Elements a rank loop must read on this data, given dense ranks: the
+    valid slots, and the x probes that find them (a cell's valid ranks plus
+    its first sentinel rank, where it has one) over the cells the loop
+    visits.  ``region``: "all" (occ_rowmax reads every row), "interior"
+    (consolidate) or "sweep" (density, force, force_step: every interior
+    cell, and the 3^d neighbours of each one that holds a particle)."""
+    from gpufluidsimulator_torch.ops import sph
+    from gpufluidsimulator_torch.ops import planes as pm
+    occ = (planes[0] < pm.SENTINEL * 0.5).sum(0)
+    probes = torch.clamp_max(occ + 1, geom.k)
+    if region != "all":
+        inter = pm.interior_mask(geom, occ.device)
+        mask = inter.clone()
+        if region == "sweep":
+            held = sph._window(inter & (occ > 0), geom)
+            for dz, dy, dx in sph._offsets(geom.dim):
+                sph._window(mask, geom, dz, dy, dx)[...] |= held
+        probes = probes[mask]
+    return float(occ.sum()), float(probes.sum())
+
+
+TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bytes", "flops")
+
+
+def bounds(c) -> dict:
+    """bound_ms: the larger of the bytes the kernel must move on this run's
+    data over the memory rate and its pair operations over the float32
+    rate."""
+    by_bytes = c["bytes"] / HBM_BYTES_PER_S
+    by_ops = c["flops"] / F32_FLOPS
+    return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=c["bytes"], flops=c["flops"])
 
 
 def phase_kernels(torch, ft):
@@ -127,6 +181,10 @@ def phase_kernels(torch, ft):
         slot, ok = table.slot, table.ok
         n = state.n
         kc = geom.k * geom.cells
+        dim = geom.dim
+        valid, probes_all = plane_touch(torch, planes, geom, "all")
+        _, probes = plane_touch(torch, planes, geom, "sweep")
+        rows_b = geom.pz * geom.n_bx * geom.py * 4
         cases = {
             "occ_rowmax": dict(
                 kernel=lambda: pm.occ_rowmax(planes[0], geom),
@@ -134,19 +192,19 @@ def phase_kernels(torch, ft):
                 library=lambda: torch.amax(torch.sum(
                     planes[0] < pm.SENTINEL * 0.5, dim=0,
                     dtype=torch.int32), dim=-1),
-                tol=0.0, exact=True,
-                bytes=kc * 4 + geom.pz * geom.n_bx * geom.py * 4, flops=0),
+                tol=0.0, exact=True, bytes=probes_all * 4 + rows_b, flops=0),
             "place": dict(
                 kernel=lambda: route.place(fields, slot, ok, geom, 3),
                 plain=lambda: route.place_plain(fields, slot, ok, geom, 3),
                 library=None, tol=0.0, exact=True,
-                bytes=6 * n * 4 + n * 4 + n + 6 * kc * 4, flops=0),
+                bytes=6 * n * 4 + n * 4 + n + 6 * kc * 4,
+                flops=0),
             "density": dict(
                 kernel=lambda: sph.density_planes(planes[:3], occ_q, occ_s,
                                                   params, geom),
                 plain=lambda: sph.density_plain(planes[:3], params, geom),
                 library=None, tol=1e-5, exact=False,
-                bytes=(3 + 1) * kc * 4,
+                bytes=(probes + (dim - 1) * valid + kc) * 4,
                 flops=DENSITY_PAIR_FLOPS * stencil_pairs(torch, planes,
                                                          geom)),
             "force": dict(
@@ -154,13 +212,14 @@ def phase_kernels(torch, ft):
                                                 params, geom),
                 plain=lambda: sph.accel_plain(planes, rho, params, geom),
                 library=None, tol=1e-4, exact=False,
-                bytes=(6 + 1 + 3) * kc * 4,
+                bytes=(probes + 2 * dim * valid + 3 * kc) * 4,
                 flops=FORCE_PAIR_FLOPS * stencil_pairs(torch, planes, geom)),
             "gather": dict(
                 kernel=lambda: route.gather(stack, slot),
                 plain=lambda: route.gather_plain(stack, slot),
                 library=None, tol=0.0, exact=True,
-                bytes=n * 4 * 4 + n * 4 + n * 4 * 4, flops=0),
+                bytes=n * 4 * 4 + n * 4 + n * 4 * 4,
+                flops=0),
         }
         # one PyTorch call computing the same function, where one exists
         flat_stack = stack.reshape(stack.shape[0], -1)
@@ -199,19 +258,12 @@ def phase_kernels(torch, ft):
                 plain_ms = time_ms(torch, c["plain"], 3)
                 lib_ms = (time_ms(torch, c["library"], REPS)
                           if c["library"] is not None else None)
-                bound_s = max(c["bytes"] / HBM_BYTES_PER_S,
-                              c["flops"] / F32_FLOPS)
                 r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_s * 1e3,
-                         bound_by=("bytes" if c["bytes"] / HBM_BYTES_PER_S
-                                   >= c["flops"] / F32_FLOPS
-                                   else "operations"),
-                         bytes=c["bytes"], flops=c["flops"])
+                         **bounds(c))
                 emit({"phase": "kernel_time", "kernel": name,
                       "shape": "dam_break n=262144 3D (260,850 particles)",
-                      **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by", "bytes",
-                                           "flops")}})
+                      "valid_slots": valid, "probe_slots": probes,
+                      **{k: r[k] for k in TIME_KEYS}})
         del cases, planes, table, rho, acc, stack, prefilled
         torch.cuda.empty_cache()
     return results
@@ -244,6 +296,30 @@ def phase_parity(torch, ft):
         emit({"phase": "parity", "dim": dim, "n": state.n,
               "rel_err": errs, "tol": {"rho": 1e-5, "pos": 1e-6,
                                        "vel": 1e-4}})
+
+
+def phase_parity_inc(torch, ft):
+    """Three pallas_inc steps on the card against the port's CPU path;
+    summation order compounds over the steps: pos 1e-5, vel 1e-3."""
+    tol = {"pos": 1e-5, "vel": 1e-3}
+    for dim, scene, kw in ((2, ft.scenes.dam_break,
+                            dict(n=600, jitter=0.3, seed=11)),
+                           (3, ft.scenes.double_dam_break, dict(n=1200))):
+        params, state = scene(dim=dim, **kw, device="cpu")
+        gpu = ft.run(state, params, 3, method="pallas_inc", device="cuda")
+        cpu = ft.run(state, params, 3, method="pallas_inc", device="cpu")
+        pg, vg, _ = aligned(gpu)
+        pc, vc, _ = aligned(cpu)
+        errs = {}
+        for key, a, b in (("pos", pg, pc), ("vel", vg, vc)):
+            errs[key] = float(np.abs(a - b).max()
+                              / max(np.abs(b).max(), 1e-9))
+            check(errs[key] <= tol[key], f"pallas_inc parity {dim}D: {key} "
+                                         f"rel {errs[key]} > {tol[key]}")
+        check(int(gpu.overflow) == int(cpu.overflow),
+              "pallas_inc parity: overflow differs")
+        emit({"phase": "parity_inc", "dim": dim, "n": state.n, "steps": 3,
+              "rel_err": errs, "tol": tol})
 
 
 def check_state(torch, st, params, n, label):
@@ -285,8 +361,9 @@ def phase_run(torch, ft, ft_build, scene, kwargs, steps, label):
     ms = t0.elapsed_time(t1) / steps
     checks = check_state(torch, sim.state, params, n, label)
     for name, cnt in counts.items():
-        check(cnt == steps, f"{label}: kernel {name} launched {cnt} times "
-                            f"in {steps} steps (expected {steps})")
+        want = steps if name in SLICE1 else 0
+        check(cnt == want, f"{label}: kernel {name} launched {cnt} times "
+                           f"in {steps} steps (expected {want})")
     rho = sim.state.rho
     emit({"phase": "run", "scene": label, "particles": n, "steps": steps,
           "ms_per_step": ms, "particle_steps_per_s": n * 1e3 / ms,
@@ -294,6 +371,249 @@ def phase_run(torch, ft, ft_build, scene, kwargs, steps, label):
           "rho_mean": float(rho.mean()), "rho_max": float(rho.max()),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **checks})
     return counts
+
+
+def phase_inc_run(torch, ft, ft_build):
+    """Config 4 through FluidSim(method="auto") at bench.py's two operating
+    points.  Returns the evolved state, the params and the launch counts
+    of the early run."""
+    from gpufluidsimulator_torch.models import solver
+    from gpufluidsimulator_torch.ops import inc
+    from gpufluidsimulator_torch.ops import planes as pm
+
+    params, state = ft.scenes.double_dam_break(n=1_000_000, dim=3,
+                                               device="cuda")
+    params = params.replace(diagnostics=False)     # as bench.py:59
+    n = state.n
+    geom = pm.geometry(params)
+    warm = ft.FluidSim(params, state, method="pallas")
+    warm.step(WARM_EARLY)
+    torch.cuda.synchronize()
+    resolved = solver._run_method("auto", INC_STEPS, n)
+    check(resolved == "pallas_inc",
+          f"auto resolved to {resolved!r} for {INC_STEPS} steps at n={n}")
+    sim = ft.FluidSim(params, warm.state)            # method="auto"
+    del warm
+    counts = {}
+    done = WARM_EARLY
+    for label, at in (("early", WARM_EARLY), ("evolved", WARM_EVOLVED)):
+        if at > done:
+            sim.step(at - done)
+            done = at
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ft_build.reset_launches()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        t0.record()
+        sim.step(INC_STEPS)
+        t1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        done += INC_STEPS
+        got = dict(ft_build.launches)
+        ms = t0.elapsed_time(t1) / INC_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        checks = check_state(torch, sim.state, params, n,
+                             f"pallas_inc {label}")
+        want = dict.fromkeys(got, 0)
+        want.update(occ_rowmax=INC_STEPS, density=INC_STEPS,
+                    force_step=INC_STEPS, consolidate=INC_STEPS,
+                    compact=INC_STEPS + 1, place=1)
+        check(got == want, f"pallas_inc {label}: launches {got}, expected "
+                           f"{want}")
+        if label == "early":
+            counts = got
+        # the steady step alone (conversions excluded), as bench.py's
+        # slope timer sees it
+        s0 = inc.to_planes(sim.state.pos, sim.state.vel, sim.state.ids,
+                           params, geom)
+        m_cap = inc.mover_capacity(n)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inc.step_planes(s0, params, geom, m_cap)
+        except RuntimeError as err:
+            check(False, f"step_planes waited for the card: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+        def steps(s=s0):
+            for _ in range(20):
+                s = inc.step_planes(s, params, geom, m_cap)
+            return s
+        step_ms = time_ms(torch, steps, 3) / 20
+        del s0
+        emit({"phase": "run_inc", "scene": "double_dam_break_3d_1197770",
+              "method": resolved, "point": label,
+              "steps_before": done - INC_STEPS, "steps": INC_STEPS,
+              "ms_per_step": ms, "particle_steps_per_s": n * 1e3 / ms,
+              "step_planes_ms": step_ms,
+              "step_planes_particle_steps_per_s": n * 1e3 / step_ms,
+              "wall_s": wall, "peak_mem_gb": peak, "launches": got,
+              **checks})
+    return sim.state, params, counts
+
+
+def phase_inc_kernels(torch, ft, state, params):
+    """The incremental path's kernels at config 4: on the planes of
+    ``state`` and on a copy with numpy-seeded velocity noise that moves
+    about 3% of the particles across a cell face in one step."""
+    from gpufluidsimulator_torch.ops import inc, sph
+    from gpufluidsimulator_torch.ops import planes as pm
+
+    geom = pm.geometry(params)
+    n = state.n
+    m_cap = inc.mover_capacity(n)
+    kc = geom.k * geom.cells
+    plane_b = kc * 4
+    results = {}
+    base = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
+    rng = np.random.default_rng(7)
+    noisy6 = base.fields6.clone()
+    live = torch.nonzero((noisy6[0] < pm.SENTINEL * 0.5).reshape(-1))[:, 0]
+    noise = rng.normal(size=(3, live.numel())) * (
+        0.0125 * params.cell / params.dt)
+    flat_v = noisy6[3:].reshape(3, -1)
+    flat_v[:, live] += torch.from_numpy(noise).to(flat_v)
+    inputs = (("evolved", base.fields6), ("vel_noise", noisy6))
+    for label, fields6 in inputs:
+        p6 = pm.halo_x(fields6)
+        occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
+        rho = pm.halo_x(sph.density_planes(p6[:3], occ_q, occ_s, params,
+                                           geom))
+        new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
+        movers, m, total = inc.compact([*new6, base.idp], flagp, m_cap)
+        arr = inc.arrival_planes(movers, m, params, geom)
+        m_i, total_i = int(m), int(total)
+        check(m_i > 0, f"config-4 kernels ({label}): no movers")
+        if label == "vel_noise":
+            check(total_i >= 0.01 * n, f"config-4 kernels ({label}): "
+                                       f"{total_i} movers < 1%")
+        pairs = stencil_pairs(torch, p6, geom)
+        valid, probes_all = plane_touch(torch, p6, geom, "all")
+        _, probes = plane_touch(torch, p6, geom, "sweep")
+        _, probes_in = plane_touch(torch, new6, geom, "interior")
+        kept = valid - total_i
+        rows_b = geom.pz * geom.n_bx * geom.py * 4
+        # consolidate reads the taken arrival rows that fit (m less the
+        # drops) and starts[c], starts[c + 1] of each interior cell
+        dropped_i = int(inc.consolidate(new6, base.idp, flagp, arr, geom)[2])
+        inter = pm.interior_mask(geom, p6.device).reshape(-1)
+        touched = torch.zeros(geom.cells + 1, dtype=torch.bool,
+                              device=p6.device)
+        touched[:-1] |= inter
+        touched[1:] |= inter
+        starts_read = float(touched.sum())
+        rows_read = m_i - dropped_i
+        flat7 = torch.cat([new6.reshape(6, -1), base.idp.reshape(1, -1)])
+        flat_flag = flagp.reshape(-1)
+        cases = {
+            "occ_rowmax": dict(
+                kernel=lambda: pm.occ_rowmax(p6[0], geom),
+                plain=lambda: pm.occ_rowmax_plain(p6[0]),
+                library=lambda: torch.amax(torch.sum(
+                    p6[0] < pm.SENTINEL * 0.5, dim=0, dtype=torch.int32),
+                    dim=-1),
+                bytes=probes_all * 4 + rows_b,
+                flops=0),
+            "density": dict(
+                kernel=lambda: sph.density_planes(p6[:3], occ_q, occ_s,
+                                                  params, geom),
+                plain=lambda: sph.density_plain(p6[:3], params, geom),
+                library=None, bytes=(probes + 2 * valid) * 4 + plane_b,
+                flops=DENSITY_PAIR_FLOPS * pairs),
+            "force_step": dict(
+                kernel=lambda: sph.accel_step(p6, rho, occ_q, occ_s, params,
+                                              geom),
+                plain=lambda: sph.accel_step_plain(p6, rho, params, geom),
+                library=None, bytes=(probes + 6 * valid) * 4 + 7 * plane_b,
+                flops=FORCE_PAIR_FLOPS * pairs),
+            "compact": dict(
+                kernel=lambda: inc.compact([*new6, base.idp], flagp,
+                                           m_cap),
+                plain=lambda: inc.compact_plain([*new6, base.idp], flagp,
+                                                m_cap),
+                library=lambda: flat7[:, torch.nonzero(
+                    flat_flag > 0.5)[:m_cap, 0]],
+                bytes=plane_b + 7 * min(total_i, m_cap) * 4
+                + 7 * m_cap * 4, flops=0),
+            "consolidate": dict(
+                kernel=lambda: inc.consolidate(new6, base.idp, flagp, arr,
+                                               geom),
+                plain=lambda: inc.consolidate_plain(new6, base.idp, flagp,
+                                                    arr, geom),
+                library=None,
+                # x probes of the interior cells, the flag of each valid
+                # slot, the other 6 channels of each kept one, the arrival
+                # rows and sort index read, the start table entries; 7
+                # planes written
+                bytes=(probes_in + valid + 6 * kept + 7 * rows_read) * 4
+                + rows_read * 8 + starts_read * 4 + 7 * plane_b, flops=0),
+        }
+        for name, c in cases.items():
+            got, want = c["kernel"](), c["plain"]()
+            torch.cuda.synchronize()
+            entry = {"phase": "kernel_check", "kernel": name,
+                     "input": f"double_dam_break 3D ({label})"}
+            if name == "force_step":
+                (g6, gf), (w6, wf) = got, want
+                ok = (p6[0] < pm.SENTINEL * 0.5) \
+                    & pm.interior_mask(geom, p6.device)[None]
+                _, rel_p = rel_err(g6[:3, ok], w6[:3, ok])
+                _, rel_v = rel_err(g6[3:, ok], w6[3:, ok])
+                err = float((g6[:, ok] - w6[:, ok]).abs().max())
+                near = torch.zeros_like(ok)
+                for d in range(3):
+                    for q in (g6[d], w6[d]):
+                        u = (q.double() - params.bounds_min[d]) \
+                            / params.cells_axis[d]
+                        near |= (u - torch.round(u)).abs() < 1e-5
+                differ = (gf != wf) & ok
+                bad = int((differ & ~near).sum())
+                check(rel_p <= 1e-6 and rel_v <= 1e-4 and bad == 0
+                      and torch.equal(g6[:, ~ok], w6[:, ~ok]),
+                      f"force_step ({label}): pos rel {rel_p}, vel rel "
+                      f"{rel_v}, {bad} flags differ away from a face")
+                entry.update(rel_err_pos=rel_p, rel_err_vel=rel_v,
+                             tol={"pos": 1e-6, "vel": 1e-4},
+                             flags_differ_near_face=int(differ.sum()),
+                             movers=m_i, flagged=total_i)
+            else:
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                if name == "density":
+                    err, rel = rel_err(got[0], want[0])
+                    check(rel <= 1e-5, f"density ({label}) rel err {rel}")
+                    entry.update(rel_err=rel, tol=1e-5)
+                else:
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    err = max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip(got, want))
+                    check(same, f"{name} ({label}) differs from its plain "
+                                f"version")
+                    entry.update(exact=True)
+            entry["max_abs_err"] = err
+            emit(entry)
+            r = results.setdefault(name, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if label != "evolved":
+                continue
+            ms = time_ms(torch, c["kernel"], REPS)
+            plain_ms = time_ms(torch, c["plain"], 3)
+            lib_ms = (time_ms(torch, c["library"], REPS)
+                      if c["library"] is not None else None)
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     movers=m_i, **bounds(c))
+            emit({"phase": "kernel_time", "kernel": name,
+                  "shape": "double_dam_break n=1e6 3D (1,197,770 "
+                           "particles), evolved planes",
+                  "valid_slots": valid, "probe_slots": probes,
+                  **{k: r[k] for k in TIME_KEYS + ("movers",)}})
+        del cases, new6, flagp, movers, arr, rho, flat7, p6
+        torch.cuda.empty_cache()
+    return results
 
 
 SOURCES = {
@@ -308,7 +628,17 @@ SOURCES = {
     "gather": ("gpufluidsimulator_torch/csrc/gather.cu",
                "gpufluidsimulator_tpu/ops/route.py:407 + "
                "gpufluidsimulator_tpu/ops/route.py:487"),
+    "force_step": ("gpufluidsimulator_torch/csrc/force.cu",
+                   "gpufluidsimulator_tpu/ops/pallas_sph.py:187 "
+                   "(fuse_integrate + emit_movers)"),
+    "compact": ("gpufluidsimulator_torch/csrc/compact.cu",
+                "gpufluidsimulator_tpu/ops/inc.py:185 + "
+                "gpufluidsimulator_tpu/ops/route.py:487"),
+    "consolidate": ("gpufluidsimulator_torch/csrc/consolidate.cu",
+                    "gpufluidsimulator_tpu/ops/inc.py:726"),
 }
+# kernels whose line entry comes from the full-rebuild run at config 3
+SLICE1 = ("occ_rowmax", "place", "density", "force", "gather")
 
 
 def main() -> int:
@@ -326,19 +656,30 @@ def main() -> int:
     phase_env(torch, ft_build)
     results = phase_kernels(torch, ft)
     phase_parity(torch, ft)
+    phase_parity_inc(torch, ft)
     counts = phase_run(torch, ft, ft_build, ft.scenes.dam_break,
                        dict(n=262144, dim=3), 200, "dam_break_3d_260850")
     phase_run(torch, ft, ft_build, ft.scenes.double_dam_break,
               dict(n=1_000_000, dim=3), 20, "double_dam_break_3d_1197770")
+    state, params, counts_inc = phase_inc_run(torch, ft, ft_build)
+    results_inc = phase_inc_kernels(torch, ft, state, params)
+    del state
     kernels = []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     for name, (src, replaces) in SOURCES.items():
-        r = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces}
+        if name in SLICE1:
+            r = results[name]
+            entry.update(launches=counts[name], **{k: r[k] for k in keys})
+            entry["launches_pallas_inc"] = counts_inc[name]
+            if name in results_inc:
+                entry["config4"] = {k: results_inc[name][k] for k in keys}
+        else:
+            r = results_inc[name]
+            entry.update(launches=counts_inc[name], **{k: r[k] for k in keys})
+        kernels.append(entry)
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line())

@@ -62,3 +62,17 @@ def planes_from_numpy(planes, slot, ok, occ_q, occ_s,
                        slot=t(slot, torch.int32), ok=t(ok, torch.bool),
                        occ_q=t(occ_q, torch.int32),
                        occ_s=t(occ_s, torch.int32))
+
+
+def inc_state_from_numpy(fields6, idp, overflow, device: DeviceLike = None):
+    """The incremental path's carried state from a reference IncState's
+    fields6, idp and overflow (as numpy)."""
+    from .ops.inc import IncState
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    return IncState(fields6=t(fields6, torch.float32),
+                    idp=t(idp, torch.float32),
+                    overflow=t(overflow, torch.int32).reshape(()))

@@ -18,20 +18,46 @@ struct FkGeom {
     long long cells;
 };
 
+// (lane, y, x tile, z) of a cell index
+struct FkCell {
+    int lane, y, xo, z;
+};
+
+__device__ __forceinline__ FkCell fk_decode(long long c, const FkGeom& g) {
+    FkCell r;
+    r.lane = (int)(c & (FK_LANES - 1));
+    const long long row = c >> 7;
+    r.y = (int)(row % g.py);
+    const long long zx = row / g.py;
+    r.xo = (int)(zx % g.n_bx);
+    r.z = (int)(zx / g.n_bx);
+    return r;
+}
+
 // True for the cells a particle can bin into (planes.interior_mask): lanes
 // 1..126 of the x tile with global x < nx, rows 8..8+ny-1, planes 1..nz
 // (3D) or plane 0 (2D).  Every 3^d neighbour of such a cell is inside the
 // array.
 __device__ __forceinline__ bool fk_interior(long long c, const FkGeom& g) {
-    const int lane = (int)(c & (FK_LANES - 1));
-    const long long row = c >> 7;
-    const int y = (int)(row % g.py);
-    const long long zx = row / g.py;
-    const int xo = (int)(zx % g.n_bx);
-    const int z = (int)(zx / g.n_bx);
-    if (lane < 1 || lane > FK_TILE_X) return false;
-    if (xo * FK_TILE_X + lane - 1 >= g.nx) return false;
-    if (y < FK_ROWS_PER_BLOCK || y >= FK_ROWS_PER_BLOCK + g.ny) return false;
-    if (g.dim == 3) return z >= 1 && z <= g.nz;
-    return z == 0;
+    const FkCell d = fk_decode(c, g);
+    if (d.lane < 1 || d.lane > FK_TILE_X) return false;
+    if (d.xo * FK_TILE_X + d.lane - 1 >= g.nx) return false;
+    if (d.y < FK_ROWS_PER_BLOCK || d.y >= FK_ROWS_PER_BLOCK + g.ny)
+        return false;
+    if (g.dim == 3) return d.z >= 1 && d.z <= g.nz;
+    return d.z == 0;
+}
+
+// Sum of per-thread ints over the block (blockDim.x a multiple of 32, at
+// most 1024); the result is valid in thread 0.
+__device__ __forceinline__ int fk_block_sum(int v) {
+    __shared__ int warp_sums[32];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    const int w = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) warp_sums[w] = v;
+    __syncthreads();
+    int total = 0;
+    if (threadIdx.x == 0)
+        for (int i = 0; i < (int)(blockDim.x >> 5); ++i) total += warp_sums[i];
+    return total;
 }

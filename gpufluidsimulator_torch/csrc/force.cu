@@ -1,8 +1,13 @@
-// Kernel 4: pressure gradient + viscosity Laplacian with the EOS fused
-// (plain mode: acceleration out, gravity excluded).
+// Kernel 4: pressure gradient + viscosity Laplacian with the EOS fused, in
+// two modes that share one pair loop:
+//   * plain (fk_force): acceleration out, gravity excluded.  Replaces
+//     gpufluidsimulator_tpu/ops/pallas_sph.py:_force_kernel with
+//     fuse_integrate = emit_movers = continuity = False.
+//   * fused step (fk_force_step, kernel 4b): the same kernel with
+//     fuse_integrate = emit_movers = True (pallas_sph.py:530-607) — see the
+//     note above force_step_epilogue below.
 //
-// Replaces gpufluidsimulator_tpu/ops/pallas_sph.py:_force_kernel with
-// fuse_integrate = emit_movers = continuity = False.  Same arithmetic and
+// Pair loop (both modes).  Same arithmetic and
 // constant folds as the TPU kernel (pallas_sph.py:264-271, 387-398,
 // 419-488), for every valid rank of an interior cell:
 //   rho_s  = valid ? max(rho, 1e-3 rho0) : rho0            (both sides)
@@ -14,14 +19,16 @@
 // and its viscosity term is removed by the -v_q sv finish).  Every other
 // slot gets 0 (the TPU kernel leaves it undefined).
 //
-// Bound on the H100: reading the 6 position/velocity planes and the density
-// planes once and writing 3 acceleration planes (10 * K * cells * 4 B,
-// 388 MB at the 260,850-particle 3D dam break) outweighs the pair
-// arithmetic (~32 flops for each of ~1.6e7 pairs) — bytes.  Design as in
+// Bound on the H100: writing the 3 acceleration planes (3 * K * cells * 4 B,
+// 116 MB at the 260,850-particle 3D dam break) plus reading the inputs at
+// the valid slots (x up to each cell's first sentinel rank) outweighs the
+// pair arithmetic (~32 flops for each of ~1.5e7 pairs) — bytes.  Design as in
 // density.cu: one thread per cell, its valid query ranks in registers,
 // each candidate (with its EOS terms) loaded and computed once and paired
 // with all of them; a warp reads 32 neighbouring lanes of one row.
 #include "common.cuh"
+
+#define FK_MAX_OBS 4
 
 struct FkEos {
     float rho0, rho_floor;     // rest density, 1e-3 * rest density
@@ -48,10 +55,146 @@ __device__ __forceinline__ void fk_eos_terms(float rho_raw, const FkEos& e,
     *ir = e.m_visc_sqrt / rho;
 }
 
-template <int KMAX, int DIM>
+// Constants of the fused step's epilogue (sph._step_args packs them).
+struct FkStep {
+    float dt, damp, one_plus_rest;      // -restitution, 1 + restitution
+    float grav[3], lo[3], hi[3], inv_cell[3];
+    float slab0, slab1;                 // [binning x origin, slab end)
+    int n_obs;
+    int obs_kind[FK_MAX_OBS];           // 0 box, 1 sphere
+    float obs_c[FK_MAX_OBS][3];
+    float obs_e[FK_MAX_OBS][3];         // box half extents; sphere radius
+};
+
+__device__ __forceinline__ float fk_sign(float x) {
+    return (float)((x > 0.0f) - (x < 0.0f));
+}
+
+// Walls, then each obstacle in order: ops/physics.py:collide_axes, the same
+// operations in the same order (box normals on the first axis attaining
+// the max; sqrt with the 1e-20 eps).
+template <int DIM>
+__device__ __forceinline__ void fk_collide(float* p, float* v,
+                                           const FkStep& s) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+        if (p[d] < s.lo[d] || p[d] > s.hi[d]) v[d] = v[d] * s.damp;
+        p[d] = fminf(fmaxf(p[d], s.lo[d]), s.hi[d]);
+    }
+    for (int o = 0; o < s.n_obs; ++o) {
+        float n[3] = {0.0f, 0.0f, 0.0f};
+        float sdf;
+        if (s.obs_kind[o] == 1) {
+            float dv[3];
+            float ss = 0.0f;
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) {
+                dv[d] = p[d] - s.obs_c[o][d];
+                ss = ss + dv[d] * dv[d];
+            }
+            const float r = sqrtf(ss + 1e-20f);
+            sdf = r - s.obs_e[o][0];
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) n[d] = dv[d] / r;
+        } else {
+            float q[3], out[3], sgn[3];
+            float qmax = 0.0f, so = 0.0f;
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) {
+                q[d] = fabsf(p[d] - s.obs_c[o][d]) - s.obs_e[o][d];
+                qmax = d == 0 ? q[0] : fmaxf(qmax, q[d]);
+                out[d] = fmaxf(q[d], 0.0f);
+                so = so + out[d] * out[d];
+                sgn[d] = fk_sign(p[d] - s.obs_c[o][d]);
+            }
+            so = sqrtf(so + 1e-20f);
+            if (qmax > 0.0f) {
+                sdf = so;
+#pragma unroll
+                for (int d = 0; d < DIM; ++d)
+                    n[d] = out[d] * sgn[d] / (so + 1e-20f);
+            } else {
+                sdf = fminf(qmax, 0.0f);
+                bool taken = false;
+#pragma unroll
+                for (int d = 0; d < DIM; ++d) {
+                    const bool first = !taken && q[d] == qmax;
+                    taken = taken || first;
+                    n[d] = first ? sgn[d] : 0.0f;
+                }
+            }
+        }
+        const bool inside = sdf < 0.0f;
+        float vn = 0.0f;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) {
+            if (inside) p[d] = p[d] - sdf * n[d];
+            vn = vn + v[d] * n[d];
+        }
+        if (inside && vn < 0.0f) {
+            const float dvn = s.one_plus_rest * vn;
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) v[d] = v[d] - dvn * n[d];
+        }
+    }
+}
+
+__device__ __forceinline__ int fk_cell_of(float x, float base, float inv,
+                                          int n) {
+    const int c = (int)floorf((x - base) * inv);
+    return min(max(c, 0), n - 1);
+}
+
+// Kernel 4b epilogue, for one valid query rank of an interior cell:
+//   v' = v + (a + g) dt,  x' = x + v' dt,  then walls and obstacles;
+//   moved = the float32 cell floor((x' - lo) * (1/cell)) differs from the
+//           slot's own cell on any axis, or x' left the x slab
+// (pallas_sph.py:530-587).  The planes come out UNBLANKED: a mover keeps
+// its slot, flagged, so the compaction reads it straight out of new6.
+//
+// Bound on the H100 (fused mode): the 7 output planes (6 + flag) written
+// once, 7 * K * cells * 4 B = 411 MB at the 1,197,770-particle double dam
+// break, plus the 7 inputs read at the valid slots only (0.135 ms in all) —
+// bytes, well above the pair arithmetic.  Design: the epilogue runs in the
+// registers that already hold the query ranks, so the acceleration never
+// touches memory; every slot is written, so nothing is left undefined.
+template <int DIM>
+__device__ __forceinline__ void force_step_epilogue(
+        float qx, float qy, float qz, float qvx, float qvy, float qvz,
+        float ax, float ay, float az, const FkStep& st, const FkCell& cc,
+        const FkGeom& g, float* out6, float* flag, long long s,
+        long long ch) {
+    float a[3] = {ax, ay, az};
+    float v[3] = {qvx, qvy, qvz};
+    float p[3] = {qx, qy, qz};
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+        v[d] = v[d] + (a[d] + st.grav[d]) * st.dt;
+        p[d] = p[d] + v[d] * st.dt;
+    }
+    fk_collide<DIM>(p, v, st);
+    const int gx = cc.xo * FK_TILE_X + cc.lane - 1;
+    bool moved = fk_cell_of(p[0], st.slab0, st.inv_cell[0], g.nx) != gx;
+    moved |= fk_cell_of(p[1], st.lo[1], st.inv_cell[1], g.ny)
+                 + FK_ROWS_PER_BLOCK != cc.y;
+    if (DIM == 3)
+        moved |= fk_cell_of(p[2], st.lo[2], st.inv_cell[2], g.nz) + 1
+                     != cc.z;
+    moved |= p[0] < st.slab0 || p[0] >= st.slab1;
+    out6[s] = p[0];
+    out6[ch + s] = p[1];
+    out6[2 * ch + s] = DIM == 3 ? p[2] : 0.0f;
+    out6[3 * ch + s] = v[0];
+    out6[4 * ch + s] = v[1];
+    out6[5 * ch + s] = DIM == 3 ? v[2] : 0.0f;
+    flag[s] = moved ? 1.0f : 0.0f;
+}
+
+template <int KMAX, int DIM, bool FUSE>
 __global__ void __launch_bounds__(128)
 force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
-             float* __restrict__ acc_out, FkGeom g, float h, FkEos e) {
+             float* __restrict__ acc_out, float* __restrict__ flag_out,
+             FkGeom g, float h, FkEos e, FkStep st) {
     const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (c >= g.cells) return;
     const long long cells = g.cells;
@@ -139,6 +282,31 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
         }
     }
 
+    if constexpr (FUSE) {
+        const FkCell cc = fk_decode(c, g);
+#pragma unroll
+        for (int q = 0; q < KMAX; ++q) {
+            if (q < k) {
+                const long long s = (long long)q * cells + c;
+                if (q < nq) {
+                    force_step_epilogue<DIM>(
+                        qx[q], qy[q], qz[q], qvx[q], qvy[q], qvz[q],
+                        ax[q] - qvx[q] * sv[q], ay[q] - qvy[q] * sv[q],
+                        az[q] - qvz[q] * sv[q], st, cc, g, acc_out,
+                        flag_out, s, ch);
+                } else {
+                    acc_out[s] = FK_SENTINEL;
+                    acc_out[ch + s] = FK_SENTINEL;
+                    acc_out[2 * ch + s] = FK_SENTINEL;
+                    acc_out[3 * ch + s] = 0.0f;
+                    acc_out[4 * ch + s] = 0.0f;
+                    acc_out[5 * ch + s] = 0.0f;
+                    flag_out[s] = 0.0f;
+                }
+            }
+        }
+        return;
+    }
     float* AX = acc_out;
     float* AY = acc_out + ch;
     float* AZ = acc_out + 2 * ch;
@@ -154,17 +322,31 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
     }
 }
 
-template <int KMAX>
+template <int KMAX, bool FUSE>
 static void launch_force(const float* fields, const float* rho, float* out,
-                         const FkGeom& g, float h, const FkEos& e,
-                         cudaStream_t st) {
+                         float* flag, const FkGeom& g, float h,
+                         const FkEos& e, const FkStep& s, cudaStream_t st) {
     const unsigned blocks = (unsigned)((g.cells + 127) / 128);
     if (g.dim == 3)
-        force_kernel<KMAX, 3><<<blocks, 128, 0, st>>>(fields, rho, out, g, h,
-                                                      e);
+        force_kernel<KMAX, 3, FUSE><<<blocks, 128, 0, st>>>(
+            fields, rho, out, flag, g, h, e, s);
     else
-        force_kernel<KMAX, 2><<<blocks, 128, 0, st>>>(fields, rho, out, g, h,
-                                                      e);
+        force_kernel<KMAX, 2, FUSE><<<blocks, 128, 0, st>>>(
+            fields, rho, out, flag, g, h, e, s);
+}
+
+template <bool FUSE>
+static int force_entry(const float* fields, const float* rho, float* out,
+                       float* flag, const FkGeom& g, float h, const FkEos& e,
+                       const FkStep& s, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (g.k <= 8)
+        launch_force<8, FUSE>(fields, rho, out, flag, g, h, e, s, st);
+    else if (g.k <= 16)
+        launch_force<16, FUSE>(fields, rho, out, flag, g, h, e, s, st);
+    else
+        return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
 }
 
 extern "C" int fk_force(const float* fields, const float* rho, float* out,
@@ -176,12 +358,45 @@ extern "C" int fk_force(const float* fields, const float* rho, float* out,
     const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
     const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
                   clamp, m_spiky, m_visc_sqrt};
-    cudaStream_t st = (cudaStream_t)stream;
-    if (k <= 8)
-        launch_force<8>(fields, rho, out, g, h, e, st);
-    else if (k <= 16)
-        launch_force<16>(fields, rho, out, g, h, e, st);
-    else
-        return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+    return force_entry<false>(fields, rho, out, nullptr, g, h, e, FkStep{},
+                              stream);
+}
+
+// step: the host float array of sph._step_args — dt, -restitution,
+// 1 + restitution, gravity[3], lo[3], hi[3], 1/cell[3], slab[2], then 7
+// floats per obstacle (kind, centre[3], half extents[3] or radius).
+extern "C" int fk_force_step(const float* fields, const float* rho,
+                             float* new6, float* flag, int dim, int k,
+                             int nx, int ny, int nz, int n_bx, int py,
+                             int pz, long long cells, float h, float rho0,
+                             float rho_floor, float stiffness, int tait,
+                             float tait_b, float tait_gamma, float m_spiky,
+                             float m_visc_sqrt, int clamp, const float* step,
+                             int n_obs, void* stream) {
+    if (n_obs < 0 || n_obs > FK_MAX_OBS) return (int)cudaErrorInvalidValue;
+    const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
+    const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
+                  clamp, m_spiky, m_visc_sqrt};
+    FkStep s{};
+    s.dt = step[0];
+    s.damp = step[1];
+    s.one_plus_rest = step[2];
+    for (int d = 0; d < 3; ++d) {
+        s.grav[d] = step[3 + d];
+        s.lo[d] = step[6 + d];
+        s.hi[d] = step[9 + d];
+        s.inv_cell[d] = step[12 + d];
+    }
+    s.slab0 = step[15];
+    s.slab1 = step[16];
+    s.n_obs = n_obs;
+    for (int o = 0; o < n_obs; ++o) {
+        const float* ob = step + 17 + 7 * o;
+        s.obs_kind[o] = (int)ob[0];
+        for (int d = 0; d < 3; ++d) {
+            s.obs_c[o][d] = ob[1 + d];
+            s.obs_e[o][d] = ob[4 + d];
+        }
+    }
+    return force_entry<true>(fields, rho, new6, flag, g, h, e, s, stream);
 }

@@ -2,10 +2,11 @@
 
 Counterpart: ``gpufluidsimulator_tpu/models/solver.py``.  Method names match
 the reference for API parity; ``"pallas"`` here means the rank-plane
-kernel tier (hand-written CUDA kernels on the card).  Ported: ``naive`` and
-``pallas``.  The reference's other methods raise ``NotImplementedError``
-naming the ROADMAP item that ports them; ``auto`` resolves exactly as the
-reference's does and raises where that lands on an unported method.
+kernel tier (hand-written CUDA kernels on the card).  Ported: ``naive``,
+``pallas`` and ``pallas_inc`` (the incremental path, ``ops/inc.py``, which
+``run``/``rollout`` keep planes-resident for a whole call).  The
+reference's other methods raise ``NotImplementedError`` naming the ROADMAP
+item that ports them; ``auto`` resolves exactly as the reference's does.
 
 Every entry point takes ``device`` (default: the card; see
 ``state.resolve_device``) and moves the state there.
@@ -23,9 +24,7 @@ from .state import DeviceLike, State, resolve_device
 # method -> ROADMAP.md queue-1 item that ports it
 UNPORTED = {
     "gridded": "queue 1, item 9 (gridded tier)",
-    "pallas_inc": "queue 1, item 5 (incremental pipeline, slice 2)",
-    "pallas_inc_cont": "queue 1, item 5 (incremental pipeline, continuity "
-                       "tier)",
+    "pallas_inc_cont": "slice 3 (incremental pipeline, continuity tier)",
     "native": "queue 1, item 6 (FluidSim method='native')",
 }
 
@@ -45,7 +44,15 @@ def _step_pallas(state: State, params: SimParams) -> State:
                  overflow=overflow)
 
 
-METHODS = {"naive": _step_naive, "pallas": _step_pallas}
+def _step_pallas_inc(state: State, params: SimParams) -> State:
+    # single-step facade; multi-step calls dispatch to inc.run_inc in run()
+    # so the planes stay resident across the whole loop
+    from ..ops import inc
+    return inc.run_inc(state, params, 1)
+
+
+METHODS = {"naive": _step_naive, "pallas": _step_pallas,
+           "pallas_inc": _step_pallas_inc}
 
 
 def _ported(method: str) -> str:
@@ -74,13 +81,13 @@ def _run_method(method: str, n_steps: int, n: int) -> str:
     auto = method == "auto"
     method = resolve_method(method, n)
     if auto and method == "pallas" and n_steps >= 16 and n > 32768:
-        method = _ported("pallas_inc")
+        method = "pallas_inc"
     return method
 
 
 def step(state: State, params: SimParams, method: str = "auto",
          device: DeviceLike = None) -> State:
-    """One SPH step. method: 'naive' | 'pallas' | 'auto'."""
+    """One SPH step. method: 'naive' | 'pallas' | 'pallas_inc' | 'auto'."""
     state = state.to(resolve_device(device))
     return METHODS[resolve_method(method, state.n)](state, params)
 
@@ -90,7 +97,11 @@ def run(state: State, params: SimParams, n_steps: int, method: str = "auto",
     """Advance ``n_steps``.  Kernel launches queue on the current stream;
     nothing waits for the device between steps."""
     state = state.to(resolve_device(device))
-    fn = METHODS[_run_method(method, n_steps, state.n)]
+    method = _run_method(method, n_steps, state.n)
+    if method == "pallas_inc":
+        from ..ops import inc
+        return inc.run_inc(state, params, n_steps)
+    fn = METHODS[method]
     for _ in range(n_steps):
         state = fn(state, params)
     return state
@@ -100,11 +111,17 @@ def rollout(state: State, params: SimParams, n_steps: int,
             method: str = "auto", record_every: int = 1,
             device: DeviceLike = None):
     """Like ``run`` but records positions: returns (final, traj) with traj
-    (n_steps // record_every, N, dim).  The pallas path keeps particles
+    (n_steps // record_every, N, dim).  The pallas paths keep particles
     slot-sorted, so row i of different frames may be different particles;
-    re-align by ``State.ids`` for per-particle trajectories."""
+    re-align by ``State.ids`` for per-particle trajectories.
+    'pallas_inc' records frames out of the resident planes
+    (``inc.rollout_inc``)."""
     state = state.to(resolve_device(device))
-    fn = METHODS[_run_method(method, n_steps, state.n)]
+    method = _run_method(method, n_steps, state.n)
+    if method == "pallas_inc":
+        from ..ops import inc
+        return inc.rollout_inc(state, params, n_steps, record_every)
+    fn = METHODS[method]
     frames = []
     for _ in range(n_steps // record_every):
         for _ in range(record_every):

@@ -1,0 +1,389 @@
+"""Incremental binning: the rank planes as the state carried across steps.
+
+Counterpart: ``gpufluidsimulator_tpu/ops/inc.py`` (the summation-density
+tier, ``method="pallas_inc"``, on one card).  The plane stack (6 pos/vel
+channels + 1 id channel) is the state; flat particle arrays exist only at
+the API boundary (``to_planes`` / ``to_flat``).  Each step
+(``step_planes``):
+
+  halo -> occupancy bounds (``occ_rowmax``) -> density sweep (``density``)
+  -> fused force + EOS + integrate + collide + mover flag (``force_step``)
+  -> mover extraction (``compact``) -> one sort of the movers by target
+  cell + a per-cell start table -> ``consolidate`` (kept + arriving ranks
+  packed into K dense ranks, ghost slots re-sanitized).
+
+The reference's arrival planes (a second mover sort and ``place`` in its
+``skip_empty`` form, inc.py:625-723) exist because the TPU cannot scatter;
+here ``consolidate`` reads the cell-sorted movers directly.  Nothing in
+``step_planes`` waits for the host: every count stays a device tensor, as
+in the reference's ``lax.scan``.
+
+Hopper kernels of this module: ``compact`` (``csrc/compact.cu``, the
+reference's ``_compact_kernel`` + ``_stitch_kernel``) and ``consolidate``
+(``csrc/consolidate.cu``, ``_consolidate_kernel``), each beside its plain
+PyTorch version, which the wrappers take for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from ..models.params import SimParams
+from . import physics
+from . import planes as pm
+from . import sph
+from .planes import LANES, SENTINEL, PlaneGeom, own_cid
+
+ARRIVAL_K = 8          # max same-cell arrivals taken per step (the
+# reference's K'', equal to the cell capacity K, inc.py:63): the only drop
+# condition is then "post-step cell occupancy > K", the full rebuild's
+# overflow semantics
+TILE = 64 * LANES      # the reference's routing tile (route.TILE): the unit
+# the mover and output capacities are rounded to, so both packages size
+# their arrays alike
+MAX_F32_ID = 2 ** 24   # ids ride the planes as float32: exact below this
+MAX_COMPACT_CHANNELS = 8   # channels the CUDA compact takes
+# (csrc/compact.cu CMP_MAX_CH)
+
+
+def mover_capacity(n: int) -> int:
+    """Mover-array capacity: N/8, at least one tile, rounded up to a whole
+    tile.  Excess movers are dropped and counted in ``overflow``."""
+    return -(-max(TILE, n // 8) // TILE) * TILE
+
+
+def _round_tile(n: int) -> int:
+    return -(-n // TILE) * TILE
+
+
+class IncState(NamedTuple):
+    """The carried state of the incremental path."""
+    fields6: torch.Tensor       # (6, K, pz, n_bx, py, 128) x,y,z,vx,vy,vz
+    idp: torch.Tensor           # (K, pz, n_bx, py, 128) particle id as f32
+    overflow: torch.Tensor      # () int32 capacity drops (movers, cells)
+
+
+# ---------------------------------------------------------------------------
+# slot geometry and mover detection
+# ---------------------------------------------------------------------------
+
+def new_cids(fields6: torch.Tensor, params: SimParams,
+             geom: PlaneGeom) -> torch.Tensor:
+    """Per-slot linear cell id from the position channels (the elementwise
+    form of planes.cell_linear_parts)."""
+    pos = torch.stack([fields6[d].reshape(-1) for d in range(params.dim)],
+                      dim=-1)
+    return pm.cell_linear_parts(pos, params, geom).reshape(fields6.shape[1:])
+
+
+def detect_movers(fields6, idp, params: SimParams, geom: PlaneGeom):
+    """-> (kept6, kept_id, flags): ``flags`` marks the interior slots whose
+    particle now belongs to another cell; the kept planes have those slots
+    and every non-interior slot blanked."""
+    valid = (fields6[0] < SENTINEL * 0.5) \
+        & pm.interior_mask(geom, fields6.device)[None]
+    flags = valid & (new_cids(fields6, params, geom)
+                     != own_cid(geom, fields6.device)[None])
+    keep = valid & ~flags
+    fill = torch.tensor([SENTINEL] * 3 + [0.0] * 3, device=fields6.device)
+    kept6 = torch.where(keep[None], fields6,
+                        fill.reshape((6,) + (1,) * keep.dim()))
+    kept_id = torch.where(keep, idp, -1.0)
+    return kept6, kept_id, flags
+
+
+# ---------------------------------------------------------------------------
+# kernel 7 (+ 6): flagged compaction
+# ---------------------------------------------------------------------------
+
+def compact_plain(channels, flags: torch.Tensor, cap: int):
+    """-> (vals (C, cap), min(count, cap), count): the values of the slots
+    with flag > 0.5, in slot order, 0 past the count."""
+    idx = torch.nonzero(flags.reshape(-1) > 0.5).squeeze(1)
+    total = torch.tensor(idx.numel(), dtype=torch.int32, device=flags.device)
+    take = idx[:cap]
+    vals = torch.zeros((len(channels), cap), dtype=torch.float32,
+                       device=flags.device)
+    vals[:, :take.numel()] = torch.stack(
+        [c.reshape(-1)[take] for c in channels])
+    return vals, torch.clamp_max(total, cap), total
+
+
+def compact(channels, flags: torch.Tensor, cap: int):
+    """Flagged compaction: the CUDA kernel ``compact`` on the card, the
+    plain version for CPU tensors.  ``channels``: a sequence of single
+    channels shaped like ``flags`` (``flags`` float32, > 0.5 = flagged),
+    read in place, never copied (``[*stack, idp]`` passes a stack's views).
+    Returns (vals (C, cap), m, total): m = min(total, cap) and total the
+    flagged count, as () int32 tensors on the device."""
+    if flags.device.type == "cpu":
+        return compact_plain(channels, flags, cap)
+    if not 1 <= len(channels) <= MAX_COMPACT_CHANNELS:
+        raise ValueError(f"the CUDA compact takes 1 to "
+                         f"{MAX_COMPACT_CHANNELS} channels, got "
+                         f"{len(channels)}")
+    _build.check_tensor(flags, "flags", torch.float32, tuple(flags.shape))
+    for c in channels:
+        _build.check_tensor(c, "channel", torch.float32, tuple(flags.shape))
+    m = flags.numel()
+    nb = -(-m // 4096)                   # csrc/compact.cu CMP_CHUNK
+    vals = torch.zeros((len(channels), cap), dtype=torch.float32,
+                       device=flags.device)
+    scratch = torch.empty(nb + 2, dtype=torch.int32, device=flags.device)
+    ptrs = (ctypes.c_void_p * len(channels))(
+        *[c.data_ptr() for c in channels])
+    _build.launch("compact", flags,
+                  ctypes.cast(ptrs, ctypes.c_void_p),
+                  ctypes.c_int(len(channels)),
+                  _build.ptr(flags), ctypes.c_longlong(m), _build.ptr(vals),
+                  ctypes.c_int(cap), _build.ptr(scratch), ctypes.c_int(nb))
+    return vals, scratch[nb + 1], scratch[nb]
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: mover re-insertion and consolidation
+# ---------------------------------------------------------------------------
+
+class Arrivals(NamedTuple):
+    """Movers grouped by target cell: sorted row j is ``movers[:, order[j]]``
+    and cell c's arrivals are sorted rows ``starts[c]:starts[c + 1]``."""
+    movers: torch.Tensor      # (7, m_cap) f32
+    order: torch.Tensor       # (m_cap,) int64
+    starts: torch.Tensor      # (cells + 1,) int32
+
+
+def arrival_planes(movers, m, params: SimParams,
+                   geom: PlaneGeom) -> Arrivals:
+    """Group the first ``m`` mover rows by target cell: one sort of their
+    cell ids (dead rows keyed ``cells``, past every cell) and a per-cell
+    start table.  The reference's second sort and arrival planes have no
+    counterpart: ``consolidate`` reads the movers through ``order``.  All
+    ``m_cap`` rows are sorted, where the reference picks a smaller prefix
+    when ``m`` fits one (inc.py:702-723): picking it here would read ``m``
+    on the host, a wait for the card every step."""
+    cap = movers.shape[1]
+    pos = movers[:params.dim].T
+    cid = pm.cell_linear_parts(pos, params, geom)
+    live = torch.arange(cap, device=movers.device) < m
+    cid = torch.where(live, cid, geom.cells)
+    cid_s, order = torch.sort(cid)
+    starts = torch.searchsorted(
+        cid_s, torch.arange(geom.cells + 1, dtype=torch.int32,
+                            device=movers.device), out_int32=True)
+    return Arrivals(movers=movers, order=order, starts=starts)
+
+
+def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom):
+    """-> (fields6, idp, dropped): per cell, the kept ranks (valid, interior,
+    not flagged; ranks past the first sentinel one are not read) in rank
+    order, then up to ARRIVAL_K arrivals, packed into K dense ranks; empty
+    ranks get SENTINEL, 0 and -1."""
+    k, cells = geom.k, geom.cells
+    dev = new6.device
+    inter = pm.interior_mask(geom, dev).reshape(1, cells)
+    ext = torch.cat([new6.reshape(6, k, cells), idp.reshape(1, k, cells)])
+    upto = torch.cummin((ext[0] < SENTINEL * 0.5).to(torch.int32), dim=0) \
+        .values.bool()                          # ranks before a sentinel
+    valid_k = upto & inter & (flagp.reshape(k, cells) < 0.5)
+    # arrival ranks: row j of the sorted movers is rank j - starts[cell]
+    cap = arr.movers.shape[1]
+    cid_s = torch.searchsorted(
+        arr.starts, torch.arange(cap, dtype=torch.int32, device=dev),
+        right=True) - 1
+    live = cid_s < cells
+    cid_c = torch.clamp_max(cid_s, cells - 1)
+    dup = torch.arange(cap, device=dev) - arr.starts[cid_c]
+    ok = live & (dup < ARRIVAL_K)
+    arr_ext = torch.zeros((7, ARRIVAL_K, cells), device=dev)
+    valid_a = torch.zeros((ARRIVAL_K, cells), dtype=torch.bool, device=dev)
+    rows = arr.movers[:, arr.order[ok]]
+    arr_ext[:, dup[ok], cid_c[ok]] = rows
+    valid_a[dup[ok], cid_c[ok]] = True
+    ext = torch.cat([ext, arr_ext], dim=1)                 # (7, K+A, cells)
+    valid = torch.cat([valid_k, valid_a])
+    rank = torch.cumsum(valid, dim=0) - valid.to(torch.int64)
+    keep = valid & (rank < k)
+    dropped = (torch.sum(live & ~ok) + torch.sum(valid & ~keep)) \
+        .to(torch.int32)
+    fill = torch.tensor([SENTINEL] * 3 + [0.0] * 3 + [-1.0], device=dev)
+    out = fill[:, None, None].repeat(1, k, cells)
+    src, cell = torch.nonzero(keep, as_tuple=True)
+    out[:, rank[src, cell], cell] = ext[:, src, cell]
+    shape = (k, geom.pz, geom.n_bx, geom.py, LANES)
+    return out[:6].reshape((6,) + shape), out[6].reshape(shape), dropped
+
+
+def consolidate(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom):
+    """Per-cell consolidation: the CUDA kernel ``consolidate`` on the card,
+    the plain version for CPU tensors.  Returns (fields6, idp, dropped),
+    dropped = sum over cells of max(arrivals - ARRIVAL_K, 0)
+    + max(kept + min(arrivals, ARRIVAL_K) - K, 0), a () int32 tensor."""
+    if new6.device.type == "cpu":
+        return consolidate_plain(new6, idp, flagp, arr, geom)
+    shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
+    _build.check_tensor(new6, "new6", torch.float32, (6,) + shape)
+    _build.check_tensor(idp, "idp", torch.float32, shape)
+    _build.check_tensor(flagp, "flagp", torch.float32, shape)
+    cap = arr.movers.shape[1]
+    _build.check_tensor(arr.movers, "movers", torch.float32, (7, cap))
+    _build.check_tensor(arr.order, "order", torch.int64, (cap,))
+    _build.check_tensor(arr.starts, "starts", torch.int32,
+                        (geom.cells + 1,))
+    out6 = torch.empty_like(new6)
+    oid = torch.empty_like(idp)
+    dropped = torch.zeros((), dtype=torch.int32, device=new6.device)
+    _build.launch("consolidate", new6,
+                  _build.ptr(new6), _build.ptr(idp), _build.ptr(flagp),
+                  _build.ptr(arr.movers), ctypes.c_longlong(cap),
+                  _build.ptr(arr.order), _build.ptr(arr.starts),
+                  _build.ptr(out6), _build.ptr(oid), _build.ptr(dropped),
+                  *sph._geom_args(geom), ctypes.c_int(ARRIVAL_K))
+    return out6, oid, dropped
+
+
+# ---------------------------------------------------------------------------
+# API-boundary conversions
+# ---------------------------------------------------------------------------
+
+def to_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom) -> IncState:
+    """Full rebuild (``build_planes`` with the id channel) into the carried
+    state."""
+    if pos.shape[0] > MAX_F32_ID:
+        raise ValueError(f"the planes carry ids as float32, exact for at "
+                         f"most {MAX_F32_ID} particles; got {pos.shape[0]}")
+    table = pm.build_planes(pos, vel, ids, params, geom, with_ids=True)
+    return IncState(fields6=table.planes[:6], idp=table.planes[6],
+                    overflow=table.overflow)
+
+
+def _valid_slots(state: IncState, geom: PlaneGeom) -> torch.Tensor:
+    return ((state.fields6[0] < SENTINEL * 0.5)
+            & pm.interior_mask(geom, state.fields6.device)[None]) \
+        .to(torch.float32)
+
+
+def to_flat(state: IncState, params: SimParams, geom: PlaneGeom, n: int):
+    """Planes -> flat rows (x,y,z,vx,vy,vz,id[,rho]) in slot order and their
+    count; callers align by id.  rho comes from one density sweep when
+    ``params.diagnostics`` is set (it is not carried across steps)."""
+    channels = [*state.fields6, state.idp]
+    if params.diagnostics:
+        halo6 = pm.halo_x(state.fields6)
+        occ_q, occ_s = pm.occupancy_bounds(halo6, params, geom)
+        channels.append(sph.density_planes(halo6[:3], occ_q, occ_s, params,
+                                           geom))
+    return compact(channels, _valid_slots(state, geom), _round_tile(n))[:2]
+
+
+def to_flat_lite(state: IncState, geom: PlaneGeom, n: int):
+    """Positions + id only (4 channels): the frame recording of rollouts."""
+    return compact([*state.fields6[:3], state.idp],
+                   _valid_slots(state, geom), _round_tile(n))[:2]
+
+
+# ---------------------------------------------------------------------------
+# the incremental step
+# ---------------------------------------------------------------------------
+
+def step_planes(state: IncState, params: SimParams, geom: PlaneGeom,
+                m_cap: int) -> IncState:
+    """One SPH step in plane space (summation density, one card).
+
+    The halo lanes of ``state.fields6`` are refilled in place (they hold no
+    particles of their own)."""
+    planes6 = pm.halo_x(state.fields6)
+    occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
+    rho_p = sph.density_planes(planes6[:3], occ_q, occ_s, params, geom)
+    rho_h = pm.halo_x(rho_p)
+    new6, flagp = sph.accel_step(planes6, rho_h, occ_q, occ_s, params, geom)
+    # the flagged movers straight out of the unblanked post-step planes
+    # (flagp is 0 on every slot that is not interior)
+    movers, m, staged_total = compact([*new6, state.idp], flagp, m_cap)
+    arr = arrival_planes(movers, m, params, geom)
+    fields6, idp, dropped = consolidate(new6, state.idp, flagp, arr, geom)
+    overflow = state.overflow + (staged_total - m) + dropped
+    return IncState(fields6=fields6, idp=idp, overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# flat-state entry points (solver registry / run)
+# ---------------------------------------------------------------------------
+
+def _convert_in(state, params: SimParams, geom: PlaneGeom) -> IncState:
+    s = to_planes(state.pos, state.vel, state.ids, params, geom)
+    return s._replace(overflow=s.overflow + state.overflow)
+
+
+def _flat_state(vals, cnt, overflow, params: SimParams, n: int):
+    """Flat rows -> models.State; rows past the count (slots lost to
+    overflow) park at bounds_min with vel 0 and id -1."""
+    from ..models.state import State
+    live = torch.arange(vals.shape[1], device=vals.device) < cnt
+    lo = params.bounds_min
+    dim = params.dim
+    pos = torch.stack([torch.where(live, vals[d], lo[d])
+                       for d in range(dim)], dim=-1)[:n]
+    vel = torch.stack([torch.where(live, vals[3 + d], 0.0)
+                       for d in range(dim)], dim=-1)[:n]
+    ids = torch.where(live, vals[6].to(torch.int32), -1)[:n]
+    if params.diagnostics:
+        rho = torch.where(live, vals[7], params.rest_density)[:n]
+        pres = physics_eos(rho, params)
+    else:
+        rho = torch.full((n,), params.rest_density, device=vals.device)
+        pres = torch.zeros((n,), device=vals.device)
+    return State(pos=pos, vel=vel, rho=rho, pres=pres, ids=ids,
+                 overflow=overflow)
+
+
+def physics_eos(rho, params: SimParams):
+    return physics.eos_pressure(
+        torch.clamp_min(rho, 1e-3 * params.rest_density), params)
+
+
+def run_inc(state, params: SimParams, n_steps: int):
+    """models.State -> models.State after ``n_steps`` on the incremental
+    path: one conversion to planes, a Python loop of ``step_planes`` that
+    never waits for the card, one conversion back."""
+    n = state.n
+    geom = pm.geometry(params)
+    m_cap = mover_capacity(n)
+    s = _convert_in(state, params, geom)
+    for _ in range(n_steps):
+        s = step_planes(s, params, geom, m_cap)
+    vals, cnt = to_flat(s, params, geom, n)
+    return _flat_state(vals, cnt, s.overflow, params, n)
+
+
+def rollout_inc(state, params: SimParams, n_steps: int,
+                record_every: int = 1):
+    """models.State -> (final State, traj): the planes stay resident for the
+    whole rollout and every ``record_every`` steps a position frame is
+    compacted out (``to_flat_lite``).  traj is (n_steps // record_every, N,
+    dim) in slot order, so rows of different frames may be different
+    particles (dropped rows park at bounds_min)."""
+    n = state.n
+    geom = pm.geometry(params)
+    m_cap = mover_capacity(n)
+    s = _convert_in(state, params, geom)
+    lo = params.bounds_min
+    frames = []
+    for _ in range(n_steps // record_every):
+        for _ in range(record_every):
+            s = step_planes(s, params, geom, m_cap)
+        vals, cnt = to_flat_lite(s, geom, n)
+        live = torch.arange(vals.shape[1], device=vals.device) < cnt
+        frames.append(torch.stack(
+            [torch.where(live, vals[d], lo[d]) for d in range(params.dim)],
+            dim=-1)[:n])
+    for _ in range(n_steps % record_every):
+        s = step_planes(s, params, geom, m_cap)
+    vals, cnt = to_flat(s, params, geom, n)
+    final = _flat_state(vals, cnt, s.overflow, params, n)
+    traj = (torch.stack(frames) if frames else
+            final.pos.new_zeros((0, n, params.dim)))
+    return final, traj

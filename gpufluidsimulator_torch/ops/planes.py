@@ -118,9 +118,11 @@ def cell_linear_parts(pos: torch.Tensor, params: SimParams,
     """(N, d) -> (N,) int32 linear cell index in the allocated plane frame.
 
     Keeps the reference's float32 ``floor((pos - lo) * (1/cell))`` form, so
-    both packages bin every particle into the same cell.
+    both packages bin every particle into the same cell: a Python scalar
+    enters a float32 op rounded to float32.  The scalars stay on the host
+    (a tensor built from them on the card would be a synchronizing copy).
     """
-    lo = torch.tensor(params.bounds_min, dtype=pos.dtype, device=pos.device)
+    lo = params.bounds_min
     cax = params.cells_axis
 
     def axis(d, n):
@@ -134,6 +136,13 @@ def cell_linear_parts(pos: torch.Tensor, params: SimParams,
     z = (axis(2, geom.nz) + 1 if params.dim == 3
          else torch.zeros_like(x))
     return ((z * geom.n_bx + xo) * geom.py + y) * LANES + xi
+
+
+def own_cid(geom: PlaneGeom, device=None) -> torch.Tensor:
+    """(pz, n_bx, py, 128) int32: the linear cell id of each plane column
+    (the linearization of ``cell_linear_parts``)."""
+    return torch.arange(geom.cells, dtype=torch.int32, device=device) \
+        .reshape(geom.pz, geom.n_bx, geom.py, LANES)
 
 
 def halo_x(arr: torch.Tensor) -> torch.Tensor:
@@ -176,7 +185,8 @@ class PlaneTable(NamedTuple):
     tile particle offsets).  The port reads per-particle values back with a
     direct gather kernel (``route.gather``), so it needs neither.
     """
-    planes: torch.Tensor      # (6, K, pz, n_bx, py, 128) f32 (see FIELD_*)
+    planes: torch.Tensor      # (6 [+1 id], K, pz, n_bx, py, 128) f32
+                              #   (see FIELD_*)
     slot: torch.Tensor        # (N,) int32 flat slot k*cells + cell of the
                               #   sorted particle i; k*cells when dropped
     ok: torch.Tensor          # (N,) bool: sorted particle landed in a slot
@@ -186,8 +196,8 @@ class PlaneTable(NamedTuple):
     overflow: torch.Tensor    # ()     int32
 
 
-def build_planes(pos, vel, ids, params: SimParams,
-                 geom: PlaneGeom) -> PlaneTable:
+def build_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
+                 with_ids: bool = False) -> PlaneTable:
     """Bin particles into rank planes.
 
     Sort by cell id, rank within the cell from a cummax over run starts
@@ -195,6 +205,10 @@ def build_planes(pos, vel, ids, params: SimParams,
     by the rank-major slot ``rank*cells + cell``, then place the fields
     (``route.place``).  Both sorts are unstable: the rank order inside a
     cell is physically arbitrary.
+
+    ``with_ids`` adds the particle id as a 7th f32 plane channel (empty
+    slots 0; the x-channel sentinel marks them), as the incremental path
+    carries identity in the planes.
     """
     from . import route
 
@@ -224,14 +238,18 @@ def build_planes(pos, vel, ids, params: SimParams,
     ok = slot < k * cells
     slot = slot.to(torch.int32)
 
-    fields = torch.cat([pos_s.T, vel_s.T], dim=0)   # (2*dim, N)
+    cols = [pos_s.T, vel_s.T]
+    if with_ids:
+        cols.append(ids_s.to(torch.float32)[None])
+    fields = torch.cat(cols, dim=0)              # (2*dim [+1], N)
     stack = route.place(fields, slot, ok, geom, n_pos=dim)
     if dim == 3:
         planes = stack
     else:
         # 2D keeps the reference's 6-channel layout: all-zero z and vz
         zero = torch.zeros_like(stack[:1])
-        planes = torch.cat([stack[0:2], zero, stack[2:4], zero], dim=0)
+        planes = torch.cat([stack[0:2], zero, stack[2:4], zero, stack[4:]],
+                           dim=0)
     planes = halo_x(planes)
     return PlaneTable(planes=planes, slot=slot, ok=ok, pos_s=pos_s,
                       vel_s=vel_s, ids_s=ids_s, overflow=overflow)
@@ -243,9 +261,11 @@ def build_planes(pos, vel, ids, params: SimParams,
 
 def occ_rowmax_plain(planes_x: torch.Tensor) -> torch.Tensor:
     """(K, pz, n_bx, py, 128) x-channel -> (pz, n_bx, py) int32: the count
-    of valid ranks per cell, maxed over the 128 lanes of each row."""
-    valid = planes_x < SENTINEL * 0.5
-    return torch.sum(valid, dim=0, dtype=torch.int32).amax(dim=-1)
+    of valid ranks per cell, maxed over the 128 lanes of each row.  Ranks
+    are dense, so a cell's count stops at its first sentinel rank."""
+    valid = (planes_x < SENTINEL * 0.5).to(torch.int32)
+    lead = torch.cummin(valid, dim=0).values
+    return torch.sum(lead, dim=0, dtype=torch.int32).amax(dim=-1)
 
 
 def occ_rowmax(planes_x: torch.Tensor, geom: PlaneGeom) -> torch.Tensor:

@@ -132,10 +132,11 @@ def _force_constants(params: SimParams):
     return m_spiky, m_visc_sqrt
 
 
-def accel_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
-                params: SimParams, geom: PlaneGeom) -> torch.Tensor:
-    """(6, K, ...) pos/vel planes + (K, ...) density -> (3, K, ...)
-    pressure + viscosity acceleration (no gravity)."""
+def _accel_window(field_planes: torch.Tensor, rho_planes: torch.Tensor,
+                  params: SimParams, geom: PlaneGeom):
+    """The pair loop of both force versions over the interior's bounding
+    box: -> (acc, query), ``acc`` the dim pressure + viscosity accelerations
+    (no gravity) and ``query`` the 6 pos/vel channels, each (K, ...window)."""
     dim = params.dim
     rest = params.rest_density
     m_spiky, m_visc_sqrt = _force_constants(params)
@@ -163,12 +164,35 @@ def accel_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
         sv += torch.sum(coef_v, dim=1)
         for j in range(dim):
             acc[j] += torch.sum(coef_p * dd[j] + coef_v * c[dim + j], dim=1)
+    query = [_window(field_planes[j], geom) for j in range(6)]
+    acc = [acc[j] - query[3 + j] * sv for j in range(dim)]
+    return acc, query
+
+
+def _eos_args(params: SimParams):
+    """The pair loop's constants as csrc/force.cu takes them: h, then the
+    fused EOS (FkEos)."""
+    m_spiky, m_visc_sqrt = _force_constants(params)
+    rest = params.rest_density
+    tait_b = params.stiffness * rest / params.tait_gamma
+    return [ctypes.c_float(params.h), ctypes.c_float(rest),
+            ctypes.c_float(1e-3 * rest), ctypes.c_float(params.stiffness),
+            ctypes.c_int(params.eos == "tait"), ctypes.c_float(tait_b),
+            ctypes.c_float(params.tait_gamma), ctypes.c_float(m_spiky),
+            ctypes.c_float(m_visc_sqrt),
+            ctypes.c_int(params.clamp_negative_pressure)]
+
+
+def accel_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
+                params: SimParams, geom: PlaneGeom) -> torch.Tensor:
+    """(6, K, ...) pos/vel planes + (K, ...) density -> (3, K, ...)
+    pressure + viscosity acceleration (no gravity)."""
+    acc, _ = _accel_window(field_planes, rho_planes, params, geom)
     mask = _query_mask(field_planes[0], geom)
     out = torch.zeros((3,) + tuple(field_planes.shape[1:]),
                       dtype=torch.float32, device=field_planes.device)
-    for j in range(dim):
-        a = acc[j] - q[dim + j][:, 0] * sv
-        _window(out[j], geom)[...] = torch.where(mask, a, 0.0)
+    for j in range(params.dim):
+        _window(out[j], geom)[...] = torch.where(mask, acc[j], 0.0)
     return out
 
 
@@ -187,20 +211,120 @@ def accel_planes(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     _check_bounds(occ_q, occ_s, geom)
     out = torch.empty((3,) + shape, dtype=torch.float32,
                       device=field_planes.device)
-    m_spiky, m_visc_sqrt = _force_constants(params)
-    rest = params.rest_density
-    tait_b = params.stiffness * rest / params.tait_gamma
     _build.launch("force", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
-                  _build.ptr(out), *_geom_args(geom),
-                  ctypes.c_float(params.h), ctypes.c_float(rest),
-                  ctypes.c_float(1e-3 * rest),
-                  ctypes.c_float(params.stiffness),
-                  ctypes.c_int(params.eos == "tait"), ctypes.c_float(tait_b),
-                  ctypes.c_float(params.tait_gamma),
-                  ctypes.c_float(m_spiky), ctypes.c_float(m_visc_sqrt),
-                  ctypes.c_int(params.clamp_negative_pressure))
+                  _build.ptr(out), *_geom_args(geom), *_eos_args(params))
     return out
+
+
+# --------------------------------------------------------------------------
+# kernel 4b: force + EOS + integrate + collide + mover flag (the fused step)
+# --------------------------------------------------------------------------
+
+# obstacles the CUDA kernel takes (csrc/force.cu FK_MAX_OBS)
+MAX_KERNEL_OBSTACLES = 4
+
+
+def _slab(params: SimParams):
+    """[binning x origin, slab end) of the mover flag's slab test: the
+    global domain padded by one cell, which no particle leaves on a single
+    card (collide clamps x inside the walls) — the reference's default
+    (pallas_sph.py:772-776); its sharded path passes the device's slab."""
+    return params.bounds_min[0], params.bounds_max[0] + params.cell
+
+
+def accel_step_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
+                     params: SimParams, geom: PlaneGeom):
+    """(6, K, ...) pos/vel planes + (K, ...) density -> (new6, flagp).
+
+    new6: the post-step pos/vel planes of every valid rank of an interior
+    cell (gravity, symplectic Euler, walls then obstacles), UNBLANKED: a
+    particle that left its cell stays in its slot.  flagp: 1.0 on those
+    slots whose particle now bins into another cell (the reference's float32
+    ``floor((x - lo) * (1/cell))``, pallas_sph.py:552-578) or left the x
+    slab.  Every other slot holds the sentinel (positions) or 0 (velocities,
+    flag)."""
+    dim = params.dim
+    acc, q = _accel_window(field_planes, rho_planes, params, geom)
+    grav = params.gravity
+    dt = params.dt
+    vs = [q[3 + c] + (acc[c] + grav[c]) * dt for c in range(dim)]
+    ps = [q[c] + vs[c] * dt for c in range(dim)]
+    ps, vs = physics.collide_axes(ps, vs, params)
+    mask = _query_mask(field_planes[0], geom)
+    cid = pm.cell_linear_parts(
+        torch.stack([p.reshape(-1) for p in ps], dim=-1), params, geom)
+    own = _window(pm.own_cid(geom, mask.device), geom)
+    x0, x1 = _slab(params)
+    moved = (cid.reshape(ps[0].shape) != own) | (ps[0] < x0) \
+        | (ps[0] >= x1)
+    moved = moved & mask
+    if dim == 2:
+        zero = torch.zeros_like(ps[0])
+        ps, vs = ps + [zero], vs + [zero]
+    new6 = torch.zeros_like(field_planes[:6])
+    new6[:3] = pm.SENTINEL
+    for c in range(3):
+        _window(new6[c], geom)[...] = torch.where(mask, ps[c], pm.SENTINEL)
+        _window(new6[3 + c], geom)[...] = torch.where(mask, vs[c], 0.0)
+    flagp = torch.zeros_like(field_planes[0])
+    _window(flagp, geom)[...] = moved.to(torch.float32)
+    return new6, flagp
+
+
+def _step_args(params: SimParams):
+    """The fused epilogue's constants as the host float array that
+    csrc/force.cu reads (FkStep): dt, -restitution, 1 + restitution,
+    gravity[3], lo[3], hi[3], 1/cell[3], slab[2], then 7 floats per
+    obstacle (kind 0 box / 1 sphere, centre[3], half extents[3] or the
+    radius)."""
+    pad = (0.0,) * (3 - params.dim)
+    vals = [params.dt, -params.restitution, 1.0 + params.restitution]
+    vals += list(params.gravity + pad) + list(params.bounds_min + pad)
+    vals += list(params.bounds_max + pad)
+    vals += [1.0 / c for c in params.cells_axis] + [1.0] * (3 - params.dim)
+    vals += list(_slab(params))
+    for ob in params.obstacles:
+        kind, centre, extent = ob
+        if kind == "box":
+            vals += [0.0, *centre, *pad, *extent, *pad]
+        elif kind == "sphere":
+            vals += [1.0, *centre, *pad, extent, 0.0, 0.0]
+        else:
+            raise ValueError(f"unknown obstacle kind {kind!r}")
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
+               occ_q: torch.Tensor, occ_s: torch.Tensor,
+               params: SimParams, geom: PlaneGeom):
+    """The fused force step of the incremental path (see
+    ``accel_step_plain``): the CUDA kernel ``force_step`` on the card, the
+    plain version for CPU tensors.  ``rho_planes`` must carry refreshed
+    halo lanes."""
+    if field_planes.device.type == "cpu":
+        return accel_step_plain(field_planes, rho_planes, params, geom)
+    shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
+    _build.check_tensor(field_planes, "field_planes", torch.float32,
+                        (6,) + shape)
+    _build.check_tensor(rho_planes, "rho_planes", torch.float32, shape)
+    _check_bounds(occ_q, occ_s, geom)
+    if len(params.obstacles) > MAX_KERNEL_OBSTACLES:
+        raise ValueError(f"the CUDA force_step takes at most "
+                         f"{MAX_KERNEL_OBSTACLES} obstacles, got "
+                         f"{len(params.obstacles)}")
+    step = _step_args(params)
+    new6 = torch.empty((6,) + shape, dtype=torch.float32,
+                       device=field_planes.device)
+    flagp = torch.empty(shape, dtype=torch.float32,
+                        device=field_planes.device)
+    _build.launch("force_step", field_planes,
+                  _build.ptr(field_planes), _build.ptr(rho_planes),
+                  _build.ptr(new6), _build.ptr(flagp), *_geom_args(geom),
+                  *_eos_args(params),
+                  ctypes.cast(step, ctypes.c_void_p),
+                  ctypes.c_int(len(params.obstacles)))
+    return new6, flagp
 
 
 # --------------------------------------------------------------------------

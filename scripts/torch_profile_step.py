@@ -1,13 +1,19 @@
-"""Where one full-rebuild step of the PyTorch port spends its time on the card.
+"""Where one step of the PyTorch port spends its time on the card.
 
     python3 scripts/torch_profile_step.py [--n 262144] [--dim 3] [--steps 10]
+    python3 scripts/torch_profile_step.py --method pallas_inc \
+        --scene double_dam_break --n 1000000 --warm 100
 
-Runs the phases of ``gpufluidsimulator_torch.ops.sph.step_pallas`` one by one
-with CUDA events between them (binning incl. the place kernel, occupancy
-bounds, density, halo refresh, force, gather, integrate), averaged over
-``--steps`` steps of the 3D dam break; then a ``torch.profiler`` trace of
-whole steps, summed by kernel name, and the device busy share of that
-window.  Prints JSON lines; needs a CUDA card.  Imports nothing of JAX.
+``--method pallas`` (default) runs the phases of the full-rebuild
+``ops.sph.step_pallas`` one by one with CUDA events between them (binning
+incl. the place kernel, occupancy bounds, density, halo refresh, force,
+gather, integrate); ``--method pallas_inc`` those of the incremental
+``ops.inc.step_planes`` (occupancy bounds, density, force_step, compact,
+mover sort + start table, consolidate), after ``--warm`` full-rebuild
+steps as bench.py warms its early operating point.  Both are averaged over
+``--steps`` steps and followed by a ``torch.profiler`` trace of whole
+steps, summed by kernel name, with the device busy share of that window.
+Prints JSON lines; needs a CUDA card.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=262144)
     ap.add_argument("--dim", type=int, default=3)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--scene", default="dam_break",
+                    choices=["dam_break", "double_dam_break"])
+    ap.add_argument("--method", default="pallas",
+                    choices=["pallas", "pallas_inc"])
+    ap.add_argument("--warm", type=int, default=3)
     args = ap.parse_args()
 
     import torch
@@ -35,22 +46,90 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     import gpufluidsimulator_torch as ft
-    from gpufluidsimulator_torch.ops import physics, route, sph
     from gpufluidsimulator_torch.ops import planes as pm
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    params, state = ft.scenes.dam_break(n=args.n, dim=args.dim)
+    params, state = ft.scenes.SCENES[args.scene](n=args.n, dim=args.dim)
+    if args.method == "pallas_inc":
+        params = params.replace(diagnostics=False)     # as bench.py:59
     sim = ft.FluidSim(params, state, method="pallas")
-    sim.step(3)                                       # warm
+    sim.step(args.warm)
     torch.cuda.synchronize()
     geom = pm.geometry(params)
+    if args.method == "pallas_inc":
+        phases, step = _inc_phases(torch, params, geom, sim.state,
+                                   args.steps)
+    else:
+        phases = _full_phases(torch, params, geom, sim.state, args.steps)
+        step = sim.step
+    print(json.dumps({"phase": "step_breakdown_ms", "card": card,
+                      "method": args.method, "scene": args.scene,
+                      "particles": state.n, "steps": args.steps,
+                      "ms": phases, "sum_ms": sum(phases.values())}),
+          flush=True)
+    step(args.steps)                                  # warm the profiled path
+    torch.cuda.synchronize()
+    _profile(torch, step, args.steps, card)
+    return 0
+
+
+def _inc_phases(torch, params, geom, state, steps):
+    """CUDA-event phases of ``inc.step_planes``; returns them and a function
+    that runs whole steps on the resident planes."""
+    from gpufluidsimulator_torch.ops import inc, sph
+    from gpufluidsimulator_torch.ops import planes as pm
+
+    names = ["occupancy_bounds", "density", "force_step", "compact",
+             "mover_sort_starts", "consolidate_overflow"]
+    totals = dict.fromkeys(names, 0.0)
+    m_cap = inc.mover_capacity(state.n)
+    s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
+    movers_total = 0
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        p6 = pm.halo_x(s.fields6)
+        occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
+        ev[1].record()
+        rho = pm.halo_x(sph.density_planes(p6[:3], occ_q, occ_s, params,
+                                           geom))
+        ev[2].record()
+        new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
+        ev[3].record()
+        movers, m, total = inc.compact([*new6, s.idp], flagp, m_cap)
+        ev[4].record()
+        arr = inc.arrival_planes(movers, m, params, geom)
+        ev[5].record()
+        f6, idp, dropped = inc.consolidate(new6, s.idp, flagp, arr, geom)
+        s = inc.IncState(fields6=f6, idp=idp,
+                         overflow=s.overflow + (total - m) + dropped)
+        ev[6].record()
+        torch.cuda.synchronize()
+        movers_total += int(m)
+        for i, name in enumerate(names):
+            totals[name] += ev[i].elapsed_time(ev[i + 1])
+    phases = {k: v / steps for k, v in totals.items()}
+    phases_movers = movers_total / steps
+    print(json.dumps({"phase": "movers_per_step", "movers": phases_movers,
+                      "overflow": int(s.overflow)}), flush=True)
+    box = {"s": s}
+
+    def run(n):
+        for _ in range(n):
+            box["s"] = inc.step_planes(box["s"], params, geom, m_cap)
+    return phases, run
+
+
+def _full_phases(torch, params, geom, st, steps):
+    from gpufluidsimulator_torch.ops import physics, route, sph
+    from gpufluidsimulator_torch.ops import planes as pm
+
     names = ["bin_sort_place", "occupancy_bounds", "density", "halo_x",
              "force", "stack_gather", "integrate"]
     totals = dict.fromkeys(names, 0.0)
-    st = sim.state
-    for _ in range(args.steps):
+    for _ in range(steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
         ev[0].record()
         table = pm.build_planes(st.pos, st.vel, st.ids, params, geom)
@@ -75,17 +154,15 @@ def main() -> int:
         for i, name in enumerate(names):
             totals[name] += ev[i].elapsed_time(ev[i + 1])
         st = st._replace(pos=pos, vel=vel, ids=table.ids_s)
-    phases = {k: v / args.steps for k, v in totals.items()}
-    print(json.dumps({"phase": "step_breakdown_ms", "card": card,
-                      "particles": state.n, "steps": args.steps,
-                      "ms": phases, "sum_ms": sum(phases.values())}),
-          flush=True)
+    return {k: v / steps for k, v in totals.items()}
 
+
+def _profile(torch, step, steps, card):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.step(args.steps)
+        step(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies, fills): the host ops that
@@ -101,14 +178,13 @@ def main() -> int:
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
     print(json.dumps({
-        "phase": "profile", "card": card, "steps": args.steps,
-        "wall_ms_per_step": wall_ms / args.steps,
-        "device_ms_per_step": device_total / 1e3 / args.steps,
+        "phase": "profile", "card": card, "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": device_total / 1e3 / steps,
         "device_busy_share": device_total / 1e3 / wall_ms,
         "top": [{"name": k[:80], "calls": c,
-                 "ms_per_step": us / 1e3 / args.steps}
+                 "ms_per_step": us / 1e3 / steps}
                 for us, k, c in rows[:15]]}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

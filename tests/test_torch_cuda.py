@@ -6,11 +6,16 @@ Imports nothing of JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py -q
 
-Small scenes that reach the branches the 260,850-particle check in
-``chip_smoke.py`` does not: 2D, several x tiles (halo lanes), the Tait EOS
-and a cell capacity of 16 (the kernels' second register width).
-Tolerances as in ``chip_smoke.py``: occupancy, placement and gather exact;
-density relative 1e-5 and force 1e-4 (summation order and ``rsqrtf``).
+Small scenes that reach the branches the config-3 and config-4 checks in
+``chip_smoke.py`` do not: 2D, several x tiles (halo lanes), the Tait EOS,
+a cell capacity of 16 (the kernels' second register width), particles
+inside both obstacles and through the walls, and forced drops.
+Tolerances as in ``chip_smoke.py``: occupancy, placement, gather,
+compaction and consolidation exact; density relative 1e-5 and force 1e-4
+(summation order and ``rsqrtf``); the fused force step relative 1e-6 on
+positions and 1e-4 on velocities, with mover flags equal except on slots
+within 1e-5 of a cell face (FMA contraction moves a position by a
+rounding).
 """
 
 import numpy as np
@@ -20,7 +25,7 @@ import torch
 import gpufluidsimulator_torch as ft
 from gpufluidsimulator_torch import _build
 from gpufluidsimulator_torch.ops import planes as pm
-from gpufluidsimulator_torch.ops import route, sph
+from gpufluidsimulator_torch.ops import inc, route, sph
 
 pytestmark = pytest.mark.cuda
 
@@ -94,7 +99,8 @@ def test_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     # occ_rowmax twice: directly and through occupancy_bounds
     want_counts = {"occ_rowmax": 2, "place": 1, "density": 1, "force": 1,
-                   "gather": 1}
+                   "gather": 1, "force_step": 0, "compact": 0,
+                   "consolidate": 0}
     assert {k: _build.launches[k] - before[k] for k in before} == want_counts
 
 
@@ -124,3 +130,194 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         pm.occ_rowmax(x.float().transpose(-1, -2).contiguous()
                       .transpose(-1, -2), geom)
+
+
+INC_CASES = ["2d", "3d_collide", "multi_tile", "3d_k16"]
+
+
+def _inc_scene(case, seed=5):
+    """A scene whose particles move about a third of a cell per step
+    (numpy-seeded velocities), so movers, wall hits and, in 3D, obstacle
+    hits occur in one step; 3d_collide also seeds particles inside the box
+    pillar and the sphere."""
+    if case == "multi_tile":
+        params, state = _scene("multi_tile")
+    elif case == "2d":
+        params, state = ft.scenes.dam_break(n=600, dim=2, jitter=0.3,
+                                            seed=11, device="cpu")
+    else:
+        params, state = ft.scenes.double_dam_break(n=1200, dim=3,
+                                                   device="cpu")
+        if case == "3d_k16":
+            params = params.replace(cell_capacity=16)
+    rng = np.random.default_rng(seed)
+    pos = state.pos.numpy().copy()
+    n, dim = pos.shape
+    if case == "3d_collide":
+        (_, bc, bh), (_, sc, sr) = params.obstacles
+        pick = rng.choice(n, 48, replace=False)
+        pos[pick[:24]] = np.asarray(bc) + rng.uniform(-0.8, 0.8, (24, 3)) \
+            * np.asarray(bh)
+        d = rng.normal(size=(24, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        pos[pick[24:]] = np.asarray(sc) + d * sr \
+            * rng.uniform(0.2, 0.9, (24, 1))
+    vel = rng.normal(size=(n, dim)) * (0.3 * params.cell / params.dt)
+    return params, ft.make_state(pos, vel, device="cpu")
+
+
+def _near_face(p, params):
+    near = torch.zeros_like(p[0], dtype=torch.bool)
+    for d in range(params.dim):
+        u = (p[d].double() - params.bounds_min[d]) / params.cells_axis[d]
+        near |= (u - torch.round(u)).abs() < 1e-5
+    return near
+
+
+def _inc_inputs(params, state, device):
+    geom = pm.geometry(params)
+    s = inc.to_planes(*(t.to(device) for t in
+                        (state.pos, state.vel, state.ids)), params, geom)
+    p6 = pm.halo_x(s.fields6)
+    occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
+    rho = pm.halo_x(sph.density_planes(p6[:3], occ_q, occ_s, params, geom))
+    return geom, s, p6, rho, occ_q, occ_s
+
+
+def _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom):
+    valid = (p6[0] < pm.SENTINEL * 0.5) & \
+        pm.interior_mask(geom, p6.device)[None]
+    assert _rel(new6[:3, valid], new6_p[:3, valid]) <= 1e-6
+    assert _rel(new6[3:, valid], new6_p[3:, valid]) <= 1e-4
+    assert torch.equal(new6[:, ~valid], new6_p[:, ~valid])
+    near = _near_face(new6[:3], params) | _near_face(new6_p[:3], params)
+    differ = (flagp != flag_p) & valid
+    assert not (differ & ~near).any()
+    return int(differ.sum())
+
+
+@pytest.mark.parametrize("case", INC_CASES)
+def test_inc_kernels_match_plain(cuda, case):
+    """force_step, compact and consolidate against their plain versions on
+    the same inputs, and one launch each."""
+    params, state = _inc_scene(case)
+    geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
+    if case == "multi_tile":
+        assert geom.n_bx > 1
+    before = dict(_build.launches)
+    new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
+    new6_p, flag_p = sph.accel_step_plain(p6, rho, params, geom)
+    _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom)
+    assert int((flagp > 0.5).sum()) >= 0.01 * state.n
+
+    m_cap = inc.mover_capacity(state.n)
+    movers, m, total = inc.compact([*new6, s.idp], flagp, m_cap)
+    want = inc.compact_plain([*new6, s.idp], flagp, m_cap)
+    assert torch.equal(movers, want[0])
+    assert int(m) == int(want[1]) and int(total) == int(want[2]) > 0
+    small = inc.compact([*new6, s.idp], flagp, 5)
+    small_p = inc.compact_plain([*new6, s.idp], flagp, 5)
+    assert torch.equal(small[0], small_p[0]) and int(small[1]) == 5
+
+    arr = inc.arrival_planes(movers, m, params, geom)
+    got = inc.consolidate(new6, s.idp, flagp, arr, geom)
+    want = inc.consolidate_plain(new6, s.idp, flagp, arr, geom)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    # occ_rowmax and density once each in _inc_inputs, place in to_planes
+    assert {k: _build.launches[k] - before[k] for k in before} == {
+        "occ_rowmax": 0, "place": 0, "density": 0, "force": 0, "gather": 0,
+        "force_step": 1, "compact": 2, "consolidate": 1}
+
+
+def test_consolidate_forced_drops_match_plain(cuda):
+    """Cell capacity 2 and twelve movers sent into one cell: drops from
+    both arrivals beyond ARRIVAL_K and ranks beyond K, equal to the plain
+    version's."""
+    params, state = _inc_scene("2d")
+    params = params.replace(cell_capacity=2)
+    geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
+    new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
+    movers, m, _ = inc.compact([*new6, s.idp], flagp,
+                               inc.mover_capacity(state.n))
+    assert int(m) > 12
+    movers[:params.dim, :12] = torch.tensor(
+        [0.5 * params.cell] * params.dim, device=cuda)[:, None]
+    arr = inc.arrival_planes(movers, m, params, geom)
+    got = inc.consolidate(new6, s.idp, flagp, arr, geom)
+    want = inc.consolidate_plain(new6, s.idp, flagp, arr, geom)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[2]) >= 12 - 2
+
+
+def test_rank_loops_stop_at_first_sentinel_rank(cuda):
+    """A particle planted one rank past a cell's first sentinel rank is read
+    neither by occ_rowmax nor by consolidate's kept loop, on the card as in
+    the plain versions."""
+    params, state = _inc_scene("3d_collide")
+    geom = pm.geometry(params)
+    s = inc.to_planes(*(t.to(cuda) for t in
+                        (state.pos, state.vel, state.ids)), params, geom)
+    occ = (s.fields6[0] < pm.SENTINEL * 0.5).sum(0).reshape(-1)
+    cell = int(torch.nonzero((occ > 0) & (occ < geom.k - 1))[0, 0])
+    r = int(occ[cell]) + 1
+    f6, idp = s.fields6.clone(), s.idp.clone()
+    f6.reshape(6, geom.k, -1)[:, r, cell] = \
+        s.fields6.reshape(6, geom.k, -1)[:, 0, cell]
+    idp.reshape(geom.k, -1)[r, cell] = 12345.0
+    assert torch.equal(pm.occ_rowmax(f6[0], geom),
+                       pm.occ_rowmax(s.fields6[0], geom))
+    assert torch.equal(pm.occ_rowmax(f6[0], geom),
+                       pm.occ_rowmax_plain(f6[0]))
+    m_cap = inc.mover_capacity(state.n)
+    arr = inc.arrival_planes(torch.zeros((7, m_cap), device=cuda),
+                             torch.zeros((), dtype=torch.int32, device=cuda),
+                             params, geom)
+    flagp = torch.zeros_like(idp)
+    got = inc.consolidate(f6, idp, flagp, arr, geom)
+    want = inc.consolidate_plain(f6, idp, flagp, arr, geom)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not (got[1] == 12345.0).any() and int(got[2]) == 0
+
+
+@pytest.mark.parametrize("case", INC_CASES)
+def test_inc_run_on_card_matches_cpu(cuda, case):
+    """Three pallas_inc steps on the card against the port's CPU path,
+    re-aligned by ids (summation order compounds: pos 1e-5, vel 1e-3)."""
+    params, state = _scene(case) if case == "multi_tile" else \
+        _scene("2d" if case == "2d" else "3d")
+    if case == "3d_k16":
+        params = params.replace(cell_capacity=16)
+    gpu = ft.run(state, params, 3, method="pallas_inc", device=cuda)
+    cpu = ft.run(state, params, 3, method="pallas_inc", device="cpu")
+    assert int(gpu.overflow) == int(cpu.overflow)
+    og = np.argsort(gpu.ids.cpu().numpy())
+    oc = np.argsort(cpu.ids.numpy())
+    assert _rel(gpu.pos.cpu()[og], cpu.pos[oc]) <= 1e-5
+    assert _rel(gpu.vel.cpu()[og], cpu.vel[oc]) <= 1e-3
+    assert _rel(gpu.rho.cpu()[og], cpu.rho[oc]) <= 1e-4
+
+
+def test_step_planes_never_waits_for_the_card(cuda):
+    """No host synchronisation inside a step: every count stays on the
+    device (sync debug mode turns any synchronising call into an error)."""
+    params, state = _inc_scene("3d_collide")
+    geom = pm.geometry(params)
+    s = inc.to_planes(*(t.to(cuda) for t in
+                        (state.pos, state.vel, state.ids)), params, geom)
+    m_cap = inc.mover_capacity(state.n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # the mode is live: a tensor built from host values on the card
+        # is a synchronising copy
+        with pytest.raises(RuntimeError):
+            torch.tensor([1.0, 2.0], device=cuda)
+        for _ in range(2):
+            s = inc.step_planes(s, params, geom, m_cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(s.fields6).all()

@@ -180,9 +180,10 @@ def test_physics_matches_jax():
 
 
 def test_methods_and_auto_resolution():
-    for m in ("gridded", "pallas_inc", "pallas_inc_cont", "native"):
+    for m in ("gridded", "pallas_inc_cont", "native"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsolver.resolve_method(m, 100)
+    assert tsolver.resolve_method("pallas_inc", 100) == "pallas_inc"
     with pytest.raises(ValueError):
         tsolver.resolve_method("nope", 100)
     assert tsolver.resolve_method("auto", 8192) == "naive"
@@ -193,11 +194,12 @@ def test_methods_and_auto_resolution():
     with pytest.raises(NotImplementedError):
         tfs.FluidSim(tp, ts, method="native", device="cpu")
     # the reference's run() upgrades long 'auto' rollouts at scale to the
-    # incremental pipeline, which is not ported: raise, never substitute
+    # incremental pipeline, which the port now has
     sim = tfs.FluidSim(tp, ts, method="auto", device="cpu")
     assert sim.method == "pallas"
-    with pytest.raises(NotImplementedError, match="pallas_inc"):
-        sim.step(16)
+    assert tsolver._run_method("auto", 16, ts.n) == "pallas_inc"
+    assert tsolver._run_method("auto", 15, ts.n) == "pallas"
+    assert tsolver._run_method("pallas", 16, ts.n) == "pallas"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
