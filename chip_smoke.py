@@ -23,11 +23,22 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               counts that show every step went through every kernel; at
               each point one inc.step_planes call runs under CUDA's sync
               debug mode "error", where a wait for the card fails the run
+              At each point the same start also runs 200 steps through
+              FluidSim(method="pallas_inc_cont"), the continuity tier:
+              the same checks, its launch counts (force_step_cont and
+              consolidate_rho every step, density at ages 0, 64, 128,
+              192), the carried rho's range, the position gap to the
+              pallas_inc run, step_planes alone with rho seeded and age 1,
+              and an age-0 and an age-1 step under sync debug mode
   5. kernels  the incremental path's kernels (and occ_rowmax, density) at
               the double dam break's shapes, on the planes of the evolved
               state and on a copy with numpy-seeded velocity noise (>= 1%
-              movers): against their plain versions, timed, with bounds
+              movers): against their plain versions, timed, with bounds;
+              force_step_cont in every form and switch, the 8-channel
+              compact and consolidate_rho
   6. the kernels line, the card line, and the final ok line.
+Phase 3 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
+then sum) on the card against the port's CPU path, with the carried rho.
 Imports nothing of JAX or of gpufluidsimulator_tpu.
 """
 
@@ -45,6 +56,9 @@ F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 # flops per candidate pair, counted from the kernels' arithmetic
 DENSITY_PAIR_FLOPS = 13
 FORCE_PAIR_FLOPS = 32
+# the continuity step's default form (rate, cont_beta > 0) adds dv.d (8),
+# d2 (2), d4, d4 dot, the clamped correction (4) and the rate sum
+FORCE_CONT_PAIR_FLOPS = FORCE_PAIR_FLOPS + 17
 REPS = 20
 WARM_EARLY = 100            # bench.py's operating points
 WARM_EVOLVED = 2000
@@ -322,6 +336,64 @@ def phase_parity_inc(torch, ft):
               "rel_err": errs, "tol": tol})
 
 
+def carried_rho(torch, state, params, device, steps):
+    """The carried rho after ``steps`` inc.step_planes calls from ``state``
+    on ``device``, indexed by particle id (numpy)."""
+    from gpufluidsimulator_torch.ops import inc
+    from gpufluidsimulator_torch.ops import planes as pm
+    geom = pm.geometry(params)
+    s = inc.to_planes(*(t.to(device) for t in
+                        (state.pos, state.vel, state.ids)), params, geom,
+                      continuity=True)
+    for _ in range(steps):
+        s = inc.step_planes(s, params, geom, inc.mover_capacity(state.n))
+    valid = (s.fields6[0] < pm.SENTINEL * 0.5) \
+        & pm.interior_mask(geom, s.idp.device)[None]
+    out = np.zeros(state.n, np.float32)
+    out[s.idp[valid].long().cpu().numpy()] = s.rhop[valid].cpu().numpy()
+    return out
+
+
+def phase_parity_inc_cont(torch, ft):
+    """Three pallas_inc_cont steps on the card against the port's CPU path,
+    rate with RESUM_EVERY = 2 (step 3 re-sums) and then sum: positions and
+    velocities through ft.run, the carried rho keyed by id through three
+    inc.step_planes calls on each device."""
+    from gpufluidsimulator_torch.ops import inc
+    tol = {"pos": 1e-5, "vel": 1e-3, "rho": 1e-5}
+    resum = inc.RESUM_EVERY
+    inc.RESUM_EVERY = 2
+    try:
+        for form in ("rate", "sum"):
+            for dim, scene, kw in ((2, ft.scenes.dam_break,
+                                    dict(n=600, jitter=0.3, seed=11)),
+                                   (3, ft.scenes.double_dam_break,
+                                    dict(n=1200))):
+                params, state = scene(dim=dim, **kw, device="cpu")
+                params = params.replace(cont_form=form)
+                runs = [ft.run(state, params, 3, method="pallas_inc_cont",
+                               device=dev) for dev in ("cuda", "cpu")]
+                (pg, vg, _), (pc, vc, _) = (aligned(r) for r in runs)
+                rg, rc = (carried_rho(torch, state, params, dev, 3)
+                          for dev in ("cuda", "cpu"))
+                errs = {}
+                for key, a, b in (("pos", pg, pc), ("vel", vg, vc),
+                                  ("rho", rg, rc)):
+                    errs[key] = float(np.abs(a - b).max()
+                                      / max(np.abs(b).max(), 1e-9))
+                    check(errs[key] <= tol[key],
+                          f"pallas_inc_cont parity {form} {dim}D: {key} "
+                          f"rel {errs[key]} > {tol[key]}")
+                check(int(runs[0].overflow) == int(runs[1].overflow),
+                      "pallas_inc_cont parity: overflow differs")
+                emit({"phase": "parity_inc_cont", "cont_form": form,
+                      "resum_every": inc.RESUM_EVERY, "dim": dim,
+                      "n": state.n, "steps": 3, "rel_err": errs,
+                      "tol": tol})
+    finally:
+        inc.RESUM_EVERY = resum
+
+
 def check_state(torch, st, params, n, label):
     pos = st.pos
     lo = torch.tensor(params.bounds_min, device=pos.device)
@@ -394,12 +466,13 @@ def phase_inc_run(torch, ft, ft_build):
           f"auto resolved to {resolved!r} for {INC_STEPS} steps at n={n}")
     sim = ft.FluidSim(params, warm.state)            # method="auto"
     del warm
-    counts = {}
+    counts = counts_cont = {}
     done = WARM_EARLY
     for label, at in (("early", WARM_EARLY), ("evolved", WARM_EVOLVED)):
         if at > done:
             sim.step(at - done)
             done = at
+        start = sim.state
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ft_build.reset_launches()
@@ -453,13 +526,116 @@ def phase_inc_run(torch, ft, ft_build):
               "step_planes_particle_steps_per_s": n * 1e3 / step_ms,
               "wall_s": wall, "peak_mem_gb": peak, "launches": got,
               **checks})
-    return sim.state, params, counts
+        got = cont_point(torch, ft, ft_build, params, start, sim.state,
+                         label, done - INC_STEPS)
+        if label == "early":
+            counts_cont = got
+    return sim.state, params, counts, counts_cont
+
+
+def positions_by_id(st):
+    out = st.pos.new_zeros(st.pos.shape)
+    out[st.ids.long()] = st.pos
+    return out
+
+
+def cont_point(torch, ft, ft_build, params, start, inc_end, label, before):
+    """The continuity tier at one operating point: 200 steps through
+    FluidSim(method="pallas_inc_cont") from ``start`` (the state that the
+    pallas_inc run timed there started from; ``inc_end`` is where it
+    ended).  Returns the launch counts."""
+    from gpufluidsimulator_torch.ops import inc, sph
+    from gpufluidsimulator_torch.ops import planes as pm
+
+    n = start.n
+    geom = pm.geometry(params)
+    m_cap = inc.mover_capacity(n)
+    sim = ft.FluidSim(params, start, method="pallas_inc_cont")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft_build.reset_launches()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    t0.record()
+    sim.step(INC_STEPS)
+    t1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = dict(ft_build.launches)
+    ms = t0.elapsed_time(t1) / INC_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    checks = check_state(torch, sim.state, params, n,
+                         f"pallas_inc_cont {label}")
+    want = dict.fromkeys(got, 0)
+    want.update(occ_rowmax=INC_STEPS,
+                density=len(range(0, INC_STEPS, inc.RESUM_EVERY)),
+                force_step_cont=INC_STEPS, consolidate_rho=INC_STEPS,
+                compact=INC_STEPS + 1, place=1)
+    check(got == want, f"pallas_inc_cont {label}: launches {got}, "
+                       f"expected {want}")
+    # O(dt)-different formulations: printed, not gated
+    gap = float((positions_by_id(sim.state)
+                 - positions_by_id(inc_end)).abs().max())
+    # the carried rho after the same 200 steps on the resident planes
+    s = inc.to_planes(start.pos, start.vel, start.ids, params, geom,
+                      continuity=True)
+    for _ in range(INC_STEPS):
+        s = inc.step_planes(s, params, geom, m_cap)
+    valid = (s.fields6[0] < pm.SENTINEL * 0.5) \
+        & pm.interior_mask(geom, s.idp.device)[None]
+    rho = s.rhop[valid].double()
+    check(bool(torch.isfinite(rho).all()), f"pallas_inc_cont {label}: "
+                                           f"carried rho not finite")
+    del s, valid
+    # an age-0 (seeding sweep) and an age-1 step under sync debug "error"
+    s0 = inc.to_planes(start.pos, start.vel, start.ids, params, geom,
+                       continuity=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s2 = inc.step_planes(inc.step_planes(s0, params, geom, m_cap),
+                             params, geom, m_cap)
+    except RuntimeError as err:
+        check(False, f"continuity step_planes waited for the card: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(s2.age == 2, f"age {s2.age} after two steps")
+    del s2
+    # the steady step alone, as bench.py:76-84 times it: rho seeded by one
+    # density sweep, age pinned to 1 (no re-sum in the 20 steps)
+    p6 = pm.halo_x(s0.fields6)
+    occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
+    seeded = s0._replace(rhop=sph.density_planes(p6[:3], occ_q, occ_s,
+                                                 params, geom), age=1)
+
+    def steps(s=seeded):
+        for _ in range(20):
+            s = inc.step_planes(s, params, geom, m_cap)
+        return s
+    step_ms = time_ms(torch, steps, 3) / 20
+    del s0, seeded, p6
+    emit({"phase": "run_inc_cont",
+          "scene": "double_dam_break_3d_1197770",
+          "method": sim.method, "cont_form": params.cont_form,
+          "resum_every": inc.RESUM_EVERY, "point": label,
+          "steps_before": before, "steps": INC_STEPS,
+          "ms_per_step": ms, "particle_steps_per_s": n * 1e3 / ms,
+          "step_planes_ms": step_ms,
+          "step_planes_particle_steps_per_s": n * 1e3 / step_ms,
+          "wall_s": wall, "peak_mem_gb": peak, "launches": got,
+          "carried_rho": {"min": float(rho.min()), "mean": float(rho.mean()),
+                          "max": float(rho.max())},
+          "max_pos_gap_to_pallas_inc": gap, **checks})
+    return got
 
 
 def phase_inc_kernels(torch, ft, state, params):
     """The incremental path's kernels at config 4: on the planes of
     ``state`` and on a copy with numpy-seeded velocity noise that moves
-    about 3% of the particles across a cell face in one step."""
+    about 3% of the particles across a cell face in one step.  The
+    continuity tier's force step takes the density sweep's rho as its
+    carried rho (as at age 0) and is checked in every form and switch."""
     from gpufluidsimulator_torch.ops import inc, sph
     from gpufluidsimulator_torch.ops import planes as pm
 
@@ -478,6 +654,13 @@ def phase_inc_kernels(torch, ft, state, params):
     flat_v = noisy6[3:].reshape(3, -1)
     flat_v[:, live] += torch.from_numpy(noise).to(flat_v)
     inputs = (("evolved", base.fields6), ("vel_noise", noisy6))
+    inter = pm.interior_mask(geom, base.idp.device)
+    touched = torch.zeros(geom.cells + 1, dtype=torch.bool,
+                          device=base.idp.device)
+    touched[:-1] |= inter.reshape(-1)
+    touched[1:] |= inter.reshape(-1)
+    starts_read = float(touched.sum())
+    rows_b = geom.pz * geom.n_bx * geom.py * 4
     for label, fields6 in inputs:
         p6 = pm.halo_x(fields6)
         occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
@@ -486,8 +669,15 @@ def phase_inc_kernels(torch, ft, state, params):
         new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
         movers, m, total = inc.compact([*new6, base.idp], flagp, m_cap)
         arr = inc.arrival_planes(movers, m, params, geom)
+        # the continuity tier's mover path, rho as channel 7
+        new6c, rhoc, flagc = sph.accel_step_cont(p6, rho, occ_q, occ_s,
+                                                 params, geom)
+        chans8 = [*new6c, base.idp, rhoc]
+        movers8, m8, total8 = inc.compact(chans8, flagc, m_cap)
+        arr8 = inc.arrival_planes(movers8, m8, params, geom)
         m_i, total_i = int(m), int(total)
-        check(m_i > 0, f"config-4 kernels ({label}): no movers")
+        m8_i, total8_i = int(m8), int(total8)
+        check(m_i > 0 and m8_i > 0, f"config-4 kernels ({label}): no movers")
         if label == "vel_noise":
             check(total_i >= 0.01 * n, f"config-4 kernels ({label}): "
                                        f"{total_i} movers < 1%")
@@ -495,18 +685,14 @@ def phase_inc_kernels(torch, ft, state, params):
         valid, probes_all = plane_touch(torch, p6, geom, "all")
         _, probes = plane_touch(torch, p6, geom, "sweep")
         _, probes_in = plane_touch(torch, new6, geom, "interior")
-        kept = valid - total_i
-        rows_b = geom.pz * geom.n_bx * geom.py * 4
+        _, probes_in8 = plane_touch(torch, new6c, geom, "interior")
         # consolidate reads the taken arrival rows that fit (m less the
         # drops) and starts[c], starts[c + 1] of each interior cell
-        dropped_i = int(inc.consolidate(new6, base.idp, flagp, arr, geom)[2])
-        inter = pm.interior_mask(geom, p6.device).reshape(-1)
-        touched = torch.zeros(geom.cells + 1, dtype=torch.bool,
-                              device=p6.device)
-        touched[:-1] |= inter
-        touched[1:] |= inter
-        starts_read = float(touched.sum())
-        rows_read = m_i - dropped_i
+        rows_read = m_i - int(inc.consolidate(new6, base.idp, flagp, arr,
+                                              geom)[2])
+        rows_read8 = m8_i - int(inc.consolidate(new6c, base.idp, flagc, arr8,
+                                                geom, rhop=rhoc)[3])
+        kept, kept8 = valid - total_i, valid - total8_i
         flat7 = torch.cat([new6.reshape(6, -1), base.idp.reshape(1, -1)])
         flat_flag = flagp.reshape(-1)
         cases = {
@@ -530,6 +716,13 @@ def phase_inc_kernels(torch, ft, state, params):
                 plain=lambda: sph.accel_step_plain(p6, rho, params, geom),
                 library=None, bytes=(probes + 6 * valid) * 4 + 7 * plane_b,
                 flops=FORCE_PAIR_FLOPS * pairs),
+            "force_step_cont": dict(
+                kernel=lambda: sph.accel_step_cont(p6, rho, occ_q, occ_s,
+                                                   params, geom),
+                plain=lambda: sph.accel_step_cont_plain(p6, rho, params,
+                                                        geom),
+                library=None, bytes=(probes + 6 * valid) * 4 + 8 * plane_b,
+                flops=FORCE_CONT_PAIR_FLOPS * pairs),
             "compact": dict(
                 kernel=lambda: inc.compact([*new6, base.idp], flagp,
                                            m_cap),
@@ -539,6 +732,10 @@ def phase_inc_kernels(torch, ft, state, params):
                     flat_flag > 0.5)[:m_cap, 0]],
                 bytes=plane_b + 7 * min(total_i, m_cap) * 4
                 + 7 * m_cap * 4, flops=0),
+            "compact_8ch": dict(
+                kernel=lambda: inc.compact(chans8, flagc, m_cap),
+                plain=lambda: inc.compact_plain(chans8, flagc, m_cap),
+                timed=False),
             "consolidate": dict(
                 kernel=lambda: inc.consolidate(new6, base.idp, flagp, arr,
                                                geom),
@@ -551,36 +748,41 @@ def phase_inc_kernels(torch, ft, state, params):
                 # planes written
                 bytes=(probes_in + valid + 6 * kept + 7 * rows_read) * 4
                 + rows_read * 8 + starts_read * 4 + 7 * plane_b, flops=0),
+            "consolidate_rho": dict(
+                kernel=lambda: inc.consolidate(new6c, base.idp, flagc, arr8,
+                                               geom, rhop=rhoc),
+                plain=lambda: inc.consolidate_plain(new6c, base.idp, flagc,
+                                                    arr8, geom, rhoc),
+                library=None,
+                # as consolidate, with rho read for each kept slot and from
+                # each taken mover row, and an 8th plane written
+                bytes=(probes_in8 + valid + 7 * kept8 + 8 * rows_read8) * 4
+                + rows_read8 * 8 + starts_read * 4 + 8 * plane_b, flops=0),
         }
         for name, c in cases.items():
-            got, want = c["kernel"](), c["plain"]()
-            torch.cuda.synchronize()
             entry = {"phase": "kernel_check", "kernel": name,
                      "input": f"double_dam_break 3D ({label})"}
-            if name == "force_step":
-                (g6, gf), (w6, wf) = got, want
-                ok = (p6[0] < pm.SENTINEL * 0.5) \
-                    & pm.interior_mask(geom, p6.device)[None]
-                _, rel_p = rel_err(g6[:3, ok], w6[:3, ok])
-                _, rel_v = rel_err(g6[3:, ok], w6[3:, ok])
-                err = float((g6[:, ok] - w6[:, ok]).abs().max())
-                near = torch.zeros_like(ok)
-                for d in range(3):
-                    for q in (g6[d], w6[d]):
-                        u = (q.double() - params.bounds_min[d]) \
-                            / params.cells_axis[d]
-                        near |= (u - torch.round(u)).abs() < 1e-5
-                differ = (gf != wf) & ok
-                bad = int((differ & ~near).sum())
-                check(rel_p <= 1e-6 and rel_v <= 1e-4 and bad == 0
-                      and torch.equal(g6[:, ~ok], w6[:, ~ok]),
-                      f"force_step ({label}): pos rel {rel_p}, vel rel "
-                      f"{rel_v}, {bad} flags differ away from a face")
-                entry.update(rel_err_pos=rel_p, rel_err_vel=rel_v,
-                             tol={"pos": 1e-6, "vel": 1e-4},
-                             flags_differ_near_face=int(differ.sum()),
-                             movers=m_i, flagged=total_i)
+            if name.startswith("force_step"):
+                cont = name == "force_step_cont"
+                err = 0.0
+                for form, kw in (CONT_CASES if cont else {"": {}}).items():
+                    pf = params.replace(**kw)
+                    fn = sph.accel_step_cont if cont else sph.accel_step
+                    plain = (sph.accel_step_cont_plain if cont
+                             else sph.accel_step_plain)
+                    got = fn(p6, rho, occ_q, occ_s, pf, geom)
+                    want = plain(p6, rho, pf, geom)
+                    torch.cuda.synchronize()
+                    e = check_force_step(torch, got, want, p6, pf, geom,
+                                         f"{name} {form} ({label})")
+                    err = max(err, e.pop("max_abs_err"))
+                    emit({**entry, "cont_form": form or None, **kw, **e,
+                          "max_abs_err": err, "movers": m_i,
+                          "flagged": total_i})
+                del got, want
             else:
+                got, want = c["kernel"](), c["plain"]()
+                torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
                 if name == "density":
@@ -593,27 +795,79 @@ def phase_inc_kernels(torch, ft, state, params):
                               for a, b in zip(got, want))
                     check(same, f"{name} ({label}) differs from its plain "
                                 f"version")
-                    entry.update(exact=True)
-            entry["max_abs_err"] = err
-            emit(entry)
+                    entry.update(exact=True, channels=int(got[0].shape[0])
+                                 if name.startswith("compact") else None)
+                entry["max_abs_err"] = err
+                emit(entry)
+                del got, want
             r = results.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if label != "evolved":
+            if label != "evolved" or not c.get("timed", True):
                 continue
             ms = time_ms(torch, c["kernel"], REPS)
             plain_ms = time_ms(torch, c["plain"], 3)
             lib_ms = (time_ms(torch, c["library"], REPS)
                       if c["library"] is not None else None)
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     movers=m_i, **bounds(c))
+                     movers=m8_i if name.endswith("_rho") else m_i,
+                     **bounds(c))
             emit({"phase": "kernel_time", "kernel": name,
                   "shape": "double_dam_break n=1e6 3D (1,197,770 "
                            "particles), evolved planes",
                   "valid_slots": valid, "probe_slots": probes,
                   **{k: r[k] for k in TIME_KEYS + ("movers",)}})
         del cases, new6, flagp, movers, arr, rho, flat7, p6
+        del new6c, rhoc, flagc, chans8, movers8, arr8
         torch.cuda.empty_cache()
     return results
+
+
+# the continuity forms and switches the on-card checks cover
+CONT_CASES = {"rate": dict(cont_form="rate"),
+              "relax": dict(cont_form="relax"),
+              "sum": dict(cont_form="sum"),
+              "alpha": dict(cont_form="rate", cont_alpha=0.1),
+              "delta": dict(cont_form="rate", cont_delta=0.1),
+              "beta0": dict(cont_form="rate", cont_beta=0.0)}
+
+
+def check_force_step(torch, got, want, p6, params, geom, what):
+    """A fused force step (new6, flag) or continuity step (new6, rho, flag)
+    against its plain version: positions 1e-6 and velocities 1e-4
+    (relative), rho 1e-5, every other slot equal, and mover flags equal
+    except within 1e-5 cell of a face."""
+    from gpufluidsimulator_torch.ops import planes as pm
+    (g6, *grho, gf), (w6, *wrho, wf) = got, want
+    ok = (p6[0] < pm.SENTINEL * 0.5) \
+        & pm.interior_mask(geom, p6.device)[None]
+    _, rel_p = rel_err(g6[:3, ok], w6[:3, ok])
+    _, rel_v = rel_err(g6[3:, ok], w6[3:, ok])
+    err = float((g6[:, ok] - w6[:, ok]).abs().max())
+    near = torch.zeros_like(ok)
+    for d in range(3):
+        for q in (g6[d], w6[d]):
+            u = (q.double() - params.bounds_min[d]) / params.cells_axis[d]
+            near |= (u - torch.round(u)).abs() < 1e-5
+    differ = (gf != wf) & ok
+    bad = int((differ & ~near).sum())
+    rest_equal = torch.equal(g6[:, ~ok], w6[:, ~ok])
+    out = dict(rel_err_pos=rel_p, rel_err_vel=rel_v,
+               tol={"pos": 1e-6, "vel": 1e-4},
+               flags_differ_near_face=int(differ.sum()))
+    rel_r = 0.0
+    if grho:
+        err_r, rel_r = rel_err(grho[0][ok], wrho[0][ok])
+        err = max(err, err_r)
+        rest_equal &= torch.equal(grho[0][~ok], wrho[0][~ok])
+        out.update(rel_err_rho=rel_r, tol={"pos": 1e-6, "vel": 1e-4,
+                                           "rho": 1e-5})
+    check(rel_p <= 1e-6 and rel_v <= 1e-4 and rel_r <= 1e-5 and bad == 0
+          and rest_equal,
+          f"{what}: pos rel {rel_p}, vel rel {rel_v}, rho rel {rel_r}, "
+          f"{bad} flags differ away from a face, other slots equal "
+          f"{rest_equal}")
+    out["max_abs_err"] = err
+    return out
 
 
 SOURCES = {
@@ -636,7 +890,14 @@ SOURCES = {
                 "gpufluidsimulator_tpu/ops/route.py:487"),
     "consolidate": ("gpufluidsimulator_torch/csrc/consolidate.cu",
                     "gpufluidsimulator_tpu/ops/inc.py:726"),
+    "force_step_cont": ("gpufluidsimulator_torch/csrc/force.cu",
+                        "gpufluidsimulator_tpu/ops/pallas_sph.py:187 "
+                        "(continuity)"),
+    "consolidate_rho": ("gpufluidsimulator_torch/csrc/consolidate.cu",
+                        "gpufluidsimulator_tpu/ops/inc.py:726 (has_rho)"),
 }
+# kernels whose launches come from the continuity tier's early run
+CONT = ("force_step_cont", "consolidate_rho")
 # kernels whose line entry comes from the full-rebuild run at config 3
 SLICE1 = ("occ_rowmax", "place", "density", "force", "gather")
 
@@ -657,11 +918,13 @@ def main() -> int:
     results = phase_kernels(torch, ft)
     phase_parity(torch, ft)
     phase_parity_inc(torch, ft)
+    phase_parity_inc_cont(torch, ft)
     counts = phase_run(torch, ft, ft_build, ft.scenes.dam_break,
                        dict(n=262144, dim=3), 200, "dam_break_3d_260850")
     phase_run(torch, ft, ft_build, ft.scenes.double_dam_break,
               dict(n=1_000_000, dim=3), 20, "double_dam_break_3d_1197770")
-    state, params, counts_inc = phase_inc_run(torch, ft, ft_build)
+    state, params, counts_inc, counts_cont = phase_inc_run(torch, ft,
+                                                           ft_build)
     results_inc = phase_inc_kernels(torch, ft, state, params)
     del state
     kernels = []
@@ -678,7 +941,11 @@ def main() -> int:
                 entry["config4"] = {k: results_inc[name][k] for k in keys}
         else:
             r = results_inc[name]
-            entry.update(launches=counts_inc[name], **{k: r[k] for k in keys})
+            run_counts = counts_cont if name in CONT else counts_inc
+            entry.update(launches=run_counts[name],
+                         **{k: r[k] for k in keys})
+            if name not in CONT:
+                entry["launches_pallas_inc_cont"] = counts_cont[name]
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

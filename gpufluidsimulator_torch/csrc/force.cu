@@ -6,6 +6,8 @@
 //   * fused step (fk_force_step, kernel 4b): the same kernel with
 //     fuse_integrate = emit_movers = True (pallas_sph.py:530-607) — see the
 //     note above force_step_epilogue below.
+//   * continuity step (fk_force_step_cont, kernel 4c): the fused step with
+//     continuity = True — see the note above FkCont below.
 //
 // Pair loop (both modes).  Same arithmetic and
 // constant folds as the TPU kernel (pallas_sph.py:264-271, 387-398,
@@ -64,6 +66,38 @@ struct FkStep {
     int obs_kind[FK_MAX_OBS];           // 0 box, 1 sphere
     float obs_c[FK_MAX_OBS][3];
     float obs_e[FK_MAX_OBS][3];         // box half extents; sphere radius
+};
+
+// Kernel 4c, the continuity tier (pallas_sph.py:238-372, 407-487, 514-518,
+// 588-606).  The density input is the CARRIED rho plane; the pair loop adds,
+// with dot = (v_q - v_c).d, d2 = max(h^2 - r^2, 0), d4 = d2^2:
+//   psum -= clip(c_corr d4 dot, +-corr_cap)                (use_corr)
+//   psum -= c_av min(dot / (r^2 + 0.01 h^2), 0)            (use_alpha)
+//   sr   += d4 dot (rate) | d4 (dot + kappa_d2 d2) (relax) | d4 d2 (sum)
+//         | d4 ((dot - kappa) + kappa rho_q / m_visc_sqrt * ir_c) (delta)
+// and the epilogue writes rho_new = rho_q + drho_scale sr (rate, delta),
+// one_m_l (rho_q + drho_scale sr) (relax) or rho_sum_scale sr (sum), from
+// the query's RAW carried rho_q (the EOS alone reads max(rho, 1e-3 rho0)),
+// and 0 on every other slot.  The self pair stays in the loop: it adds h^6
+// to sum and relax, and cancels in delta only above the EOS floor.
+//
+// Bound on the H100: bytes, as kernel 4b, plus one more output plane (8 *
+// K * cells * 4 B = 470 MB at the 1,197,770-particle double dam break); the
+// default form (rate, cont_beta > 0) adds 17 operations to the pair's 32.
+// Design: the form is a template parameter, so the default pays neither
+// for delta's per-query factor nor for the other forms' branches; rho_q is
+// reread from the carried plane in the epilogue instead of held live
+// through the pair loop, as the TPU kernel rereads its centre input.
+#define FK_CONT_NONE 0
+#define FK_CONT_RATE 1
+#define FK_CONT_RELAX 2
+#define FK_CONT_SUM 3
+#define FK_CONT_DELTA 4
+
+struct FkCont {
+    float h2, drho_scale, rho_sum_scale, kappa_d2, one_m_l;
+    float c_corr, corr_cap, c_av, eps_h2, kappa, kappa_over_mv;
+    int use_corr, use_alpha;
 };
 
 __device__ __forceinline__ float fk_sign(float x) {
@@ -190,11 +224,12 @@ __device__ __forceinline__ void force_step_epilogue(
     flag[s] = moved ? 1.0f : 0.0f;
 }
 
-template <int KMAX, int DIM, bool FUSE>
+template <int KMAX, int DIM, bool FUSE, int CONT>
 __global__ void __launch_bounds__(128)
 force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
              float* __restrict__ acc_out, float* __restrict__ flag_out,
-             FkGeom g, float h, FkEos e, FkStep st) {
+             float* __restrict__ rho_out, FkGeom g, float h, FkEos e,
+             FkStep st, FkCont ct) {
     const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (c >= g.cells) return;
     const long long cells = g.cells;
@@ -210,11 +245,12 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
     float qx[KMAX], qy[KMAX], qz[KMAX], qvx[KMAX], qvy[KMAX], qvz[KMAX];
     float qp[KMAX], qir[KMAX];
     float ax[KMAX], ay[KMAX], az[KMAX], sv[KMAX];
+    float sr[KMAX], qdel[KMAX];        // continuity only (else dead)
     int nq = 0;
     const bool interior = fk_interior(c, g);
 #pragma unroll
     for (int q = 0; q < KMAX; ++q) {
-        ax[q] = ay[q] = az[q] = sv[q] = 0.0f;
+        ax[q] = ay[q] = az[q] = sv[q] = sr[q] = qdel[q] = 0.0f;
         qx[q] = qy[q] = qz[q] = qvx[q] = qvy[q] = qvz[q] = 0.0f;
         qp[q] = qir[q] = 0.0f;
         if (interior && q < k && q == nq) {
@@ -229,7 +265,9 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
                     qz[q] = Z[s];
                     qvz[q] = VZ[s];
                 }
-                fk_eos_terms(rho[s], e, &qp[q], &qir[q]);
+                const float rq = rho[s];
+                fk_eos_terms(rq, e, &qp[q], &qir[q]);
+                if (CONT == FK_CONT_DELTA) qdel[q] = rq * ct.kappa_over_mv;
                 nq = q + 1;
             }
         }
@@ -266,8 +304,37 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
                                 const float inv_r = rsqrtf(fmaxf(r2, 1e-16f));
                                 const float r = r2 * inv_r;
                                 const float hr = fmaxf(h - r, 0.0f);
+                                float psum = qp[q] + cp;
+                                if constexpr (CONT != FK_CONT_NONE) {
+                                    float dot = (qvx[q] - cvx) * ddx
+                                                + (qvy[q] - cvy) * ddy;
+                                    if (DIM == 3)
+                                        dot = dot + (qvz[q] - cvz) * ddz;
+                                    const float d2 = fmaxf(ct.h2 - r2, 0.0f);
+                                    const float d4 = d2 * d2;
+                                    const float t_dot = d4 * dot;
+                                    if (ct.use_corr)
+                                        psum = psum - fminf(fmaxf(
+                                            ct.c_corr * t_dot, -ct.corr_cap),
+                                            ct.corr_cap);
+                                    if (ct.use_alpha) {
+                                        const float rr =
+                                            rsqrtf(r2 + ct.eps_h2);
+                                        psum = psum - ct.c_av * fminf(
+                                            dot * (rr * rr), 0.0f);
+                                    }
+                                    if constexpr (CONT == FK_CONT_SUM)
+                                        sr[q] += d4 * d2;
+                                    else if constexpr (CONT == FK_CONT_RELAX)
+                                        sr[q] += d4 * (dot + ct.kappa_d2 * d2);
+                                    else if constexpr (CONT == FK_CONT_DELTA)
+                                        sr[q] += d4 * ((dot - ct.kappa)
+                                                       + qdel[q] * cir);
+                                    else
+                                        sr[q] += t_dot;
+                                }
                                 const float coef_p =
-                                    (qp[q] + cp) * (hr * hr * inv_r);
+                                    psum * (hr * hr * inv_r);
                                 const float coef_v = hr * (qir[q] * cir);
                                 sv[q] += coef_v;
                                 ax[q] += coef_p * ddx + coef_v * cvx;
@@ -294,7 +361,16 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
                         ax[q] - qvx[q] * sv[q], ay[q] - qvy[q] * sv[q],
                         az[q] - qvz[q] * sv[q], st, cc, g, acc_out,
                         flag_out, s, ch);
+                    if constexpr (CONT == FK_CONT_SUM) {
+                        rho_out[s] = ct.rho_sum_scale * sr[q];
+                    } else if constexpr (CONT != FK_CONT_NONE) {
+                        const float rho_q = rho[s];     // raw, reread
+                        float rn = rho_q + ct.drho_scale * sr[q];
+                        if (CONT == FK_CONT_RELAX) rn = ct.one_m_l * rn;
+                        rho_out[s] = rn;
+                    }
                 } else {
+                    if (CONT != FK_CONT_NONE) rho_out[s] = 0.0f;
                     acc_out[s] = FK_SENTINEL;
                     acc_out[ch + s] = FK_SENTINEL;
                     acc_out[2 * ch + s] = FK_SENTINEL;
@@ -322,28 +398,32 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
     }
 }
 
-template <int KMAX, bool FUSE>
+template <int KMAX, bool FUSE, int CONT>
 static void launch_force(const float* fields, const float* rho, float* out,
-                         float* flag, const FkGeom& g, float h,
-                         const FkEos& e, const FkStep& s, cudaStream_t st) {
+                         float* flag, float* rho_out, const FkGeom& g,
+                         float h, const FkEos& e, const FkStep& s,
+                         const FkCont& ct, cudaStream_t st) {
     const unsigned blocks = (unsigned)((g.cells + 127) / 128);
     if (g.dim == 3)
-        force_kernel<KMAX, 3, FUSE><<<blocks, 128, 0, st>>>(
-            fields, rho, out, flag, g, h, e, s);
+        force_kernel<KMAX, 3, FUSE, CONT><<<blocks, 128, 0, st>>>(
+            fields, rho, out, flag, rho_out, g, h, e, s, ct);
     else
-        force_kernel<KMAX, 2, FUSE><<<blocks, 128, 0, st>>>(
-            fields, rho, out, flag, g, h, e, s);
+        force_kernel<KMAX, 2, FUSE, CONT><<<blocks, 128, 0, st>>>(
+            fields, rho, out, flag, rho_out, g, h, e, s, ct);
 }
 
-template <bool FUSE>
+template <bool FUSE, int CONT>
 static int force_entry(const float* fields, const float* rho, float* out,
-                       float* flag, const FkGeom& g, float h, const FkEos& e,
-                       const FkStep& s, void* stream) {
+                       float* flag, float* rho_out, const FkGeom& g, float h,
+                       const FkEos& e, const FkStep& s, const FkCont& ct,
+                       void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (g.k <= 8)
-        launch_force<8, FUSE>(fields, rho, out, flag, g, h, e, s, st);
+        launch_force<8, FUSE, CONT>(fields, rho, out, flag, rho_out, g, h, e,
+                                    s, ct, st);
     else if (g.k <= 16)
-        launch_force<16, FUSE>(fields, rho, out, flag, g, h, e, s, st);
+        launch_force<16, FUSE, CONT>(fields, rho, out, flag, rho_out, g, h,
+                                     e, s, ct, st);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
@@ -358,25 +438,15 @@ extern "C" int fk_force(const float* fields, const float* rho, float* out,
     const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
     const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
                   clamp, m_spiky, m_visc_sqrt};
-    return force_entry<false>(fields, rho, out, nullptr, g, h, e, FkStep{},
-                              stream);
+    return force_entry<false, FK_CONT_NONE>(fields, rho, out, nullptr,
+                                            nullptr, g, h, e, FkStep{},
+                                            FkCont{}, stream);
 }
 
-// step: the host float array of sph._step_args — dt, -restitution,
+// FkStep from the host float array of sph._step_args: dt, -restitution,
 // 1 + restitution, gravity[3], lo[3], hi[3], 1/cell[3], slab[2], then 7
 // floats per obstacle (kind, centre[3], half extents[3] or radius).
-extern "C" int fk_force_step(const float* fields, const float* rho,
-                             float* new6, float* flag, int dim, int k,
-                             int nx, int ny, int nz, int n_bx, int py,
-                             int pz, long long cells, float h, float rho0,
-                             float rho_floor, float stiffness, int tait,
-                             float tait_b, float tait_gamma, float m_spiky,
-                             float m_visc_sqrt, int clamp, const float* step,
-                             int n_obs, void* stream) {
-    if (n_obs < 0 || n_obs > FK_MAX_OBS) return (int)cudaErrorInvalidValue;
-    const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
-    const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
-                  clamp, m_spiky, m_visc_sqrt};
+static FkStep fk_step_from(const float* step, int n_obs) {
     FkStep s{};
     s.dt = step[0];
     s.damp = step[1];
@@ -398,5 +468,66 @@ extern "C" int fk_force_step(const float* fields, const float* rho,
             s.obs_e[o][d] = ob[4 + d];
         }
     }
-    return force_entry<true>(fields, rho, new6, flag, g, h, e, s, stream);
+    return s;
+}
+
+extern "C" int fk_force_step(const float* fields, const float* rho,
+                             float* new6, float* flag, int dim, int k,
+                             int nx, int ny, int nz, int n_bx, int py,
+                             int pz, long long cells, float h, float rho0,
+                             float rho_floor, float stiffness, int tait,
+                             float tait_b, float tait_gamma, float m_spiky,
+                             float m_visc_sqrt, int clamp, const float* step,
+                             int n_obs, void* stream) {
+    if (n_obs < 0 || n_obs > FK_MAX_OBS) return (int)cudaErrorInvalidValue;
+    const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
+    const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
+                  clamp, m_spiky, m_visc_sqrt};
+    return force_entry<true, FK_CONT_NONE>(fields, rho, new6, flag, nullptr,
+                                           g, h, e, fk_step_from(step, n_obs),
+                                           FkCont{}, stream);
+}
+
+// rho: the CARRIED density (halo lanes refreshed); rho_out: next step's.
+// form: FK_CONT_RATE..FK_CONT_DELTA (sph.CONT_FORMS); cont: the host float
+// array of sph._cont_args, the float fields of FkCont in order.
+extern "C" int fk_force_step_cont(const float* fields, const float* rho,
+                                  float* new6, float* rho_out, float* flag,
+                                  int dim, int k, int nx, int ny, int nz,
+                                  int n_bx, int py, int pz, long long cells,
+                                  float h, float rho0, float rho_floor,
+                                  float stiffness, int tait, float tait_b,
+                                  float tait_gamma, float m_spiky,
+                                  float m_visc_sqrt, int clamp,
+                                  const float* step, int n_obs, int form,
+                                  int use_corr, int use_alpha,
+                                  const float* cont, void* stream) {
+    if (n_obs < 0 || n_obs > FK_MAX_OBS) return (int)cudaErrorInvalidValue;
+    const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
+    const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
+                  clamp, m_spiky, m_visc_sqrt};
+    const FkStep s = fk_step_from(step, n_obs);
+    const FkCont ct{cont[0], cont[1], cont[2], cont[3], cont[4], cont[5],
+                    cont[6], cont[7], cont[8], cont[9], cont[10],
+                    use_corr, use_alpha};
+    switch (form) {
+        case FK_CONT_RATE:
+            return force_entry<true, FK_CONT_RATE>(fields, rho, new6, flag,
+                                                   rho_out, g, h, e, s, ct,
+                                                   stream);
+        case FK_CONT_RELAX:
+            return force_entry<true, FK_CONT_RELAX>(fields, rho, new6, flag,
+                                                    rho_out, g, h, e, s, ct,
+                                                    stream);
+        case FK_CONT_SUM:
+            return force_entry<true, FK_CONT_SUM>(fields, rho, new6, flag,
+                                                  rho_out, g, h, e, s, ct,
+                                                  stream);
+        case FK_CONT_DELTA:
+            return force_entry<true, FK_CONT_DELTA>(fields, rho, new6, flag,
+                                                    rho_out, g, h, e, s, ct,
+                                                    stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }

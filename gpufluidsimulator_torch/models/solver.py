@@ -3,10 +3,11 @@
 Counterpart: ``gpufluidsimulator_tpu/models/solver.py``.  Method names match
 the reference for API parity; ``"pallas"`` here means the rank-plane
 kernel tier (hand-written CUDA kernels on the card).  Ported: ``naive``,
-``pallas`` and ``pallas_inc`` (the incremental path, ``ops/inc.py``, which
-``run``/``rollout`` keep planes-resident for a whole call).  The
-reference's other methods raise ``NotImplementedError`` naming the ROADMAP
-item that ports them; ``auto`` resolves exactly as the reference's does.
+``pallas``, ``pallas_inc`` (the incremental path, ``ops/inc.py``, which
+``run``/``rollout`` keep planes-resident for a whole call) and
+``pallas_inc_cont`` (its continuity-density tier).  The reference's other
+methods raise ``NotImplementedError`` naming the ROADMAP item that ports
+them; ``auto`` resolves exactly as the reference's does.
 
 Every entry point takes ``device`` (default: the card; see
 ``state.resolve_device``) and moves the state there.
@@ -24,7 +25,6 @@ from .state import DeviceLike, State, resolve_device
 # method -> ROADMAP.md queue-1 item that ports it
 UNPORTED = {
     "gridded": "queue 1, item 9 (gridded tier)",
-    "pallas_inc_cont": "slice 3 (incremental pipeline, continuity tier)",
     "native": "queue 1, item 6 (FluidSim method='native')",
 }
 
@@ -51,8 +51,20 @@ def _step_pallas_inc(state: State, params: SimParams) -> State:
     return inc.run_inc(state, params, 1)
 
 
+def _step_pallas_inc_cont(state: State, params: SimParams) -> State:
+    # single-step facade, as the reference's (solver.py:69-82): each call
+    # converts flat -> planes afresh, which resets the carried density's
+    # age to 0, so every call pays the seeding density sweep and never
+    # reaches the steady continuity step; run()/rollout() keep the planes
+    # and the age resident for a whole call
+    from ..ops import inc
+    return inc.run_inc(state, params, 1, continuity=True)
+
+
 METHODS = {"naive": _step_naive, "pallas": _step_pallas,
-           "pallas_inc": _step_pallas_inc}
+           "pallas_inc": _step_pallas_inc,
+           "pallas_inc_cont": _step_pallas_inc_cont}
+INC_METHODS = ("pallas_inc", "pallas_inc_cont")
 
 
 def _ported(method: str) -> str:
@@ -87,7 +99,9 @@ def _run_method(method: str, n_steps: int, n: int) -> str:
 
 def step(state: State, params: SimParams, method: str = "auto",
          device: DeviceLike = None) -> State:
-    """One SPH step. method: 'naive' | 'pallas' | 'pallas_inc' | 'auto'."""
+    """One SPH step. method: 'naive' | 'pallas' | 'pallas_inc' |
+    'pallas_inc_cont' | 'auto'.  'pallas_inc_cont' re-seeds its carried
+    density on every call (see ``_step_pallas_inc_cont``)."""
     state = state.to(resolve_device(device))
     return METHODS[resolve_method(method, state.n)](state, params)
 
@@ -98,9 +112,10 @@ def run(state: State, params: SimParams, n_steps: int, method: str = "auto",
     nothing waits for the device between steps."""
     state = state.to(resolve_device(device))
     method = _run_method(method, n_steps, state.n)
-    if method == "pallas_inc":
+    if method in INC_METHODS:
         from ..ops import inc
-        return inc.run_inc(state, params, n_steps)
+        return inc.run_inc(state, params, n_steps,
+                           continuity=method == "pallas_inc_cont")
     fn = METHODS[method]
     for _ in range(n_steps):
         state = fn(state, params)
@@ -114,13 +129,14 @@ def rollout(state: State, params: SimParams, n_steps: int,
     (n_steps // record_every, N, dim).  The pallas paths keep particles
     slot-sorted, so row i of different frames may be different particles;
     re-align by ``State.ids`` for per-particle trajectories.
-    'pallas_inc' records frames out of the resident planes
-    (``inc.rollout_inc``)."""
+    'pallas_inc' and 'pallas_inc_cont' record frames out of the resident
+    planes (``inc.rollout_inc``)."""
     state = state.to(resolve_device(device))
     method = _run_method(method, n_steps, state.n)
-    if method == "pallas_inc":
+    if method in INC_METHODS:
         from ..ops import inc
-        return inc.rollout_inc(state, params, n_steps, record_every)
+        return inc.rollout_inc(state, params, n_steps, record_every,
+                               continuity=method == "pallas_inc_cont")
     fn = METHODS[method]
     frames = []
     for _ in range(n_steps // record_every):

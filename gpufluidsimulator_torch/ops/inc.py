@@ -1,16 +1,22 @@
 """Incremental binning: the rank planes as the state carried across steps.
 
-Counterpart: ``gpufluidsimulator_tpu/ops/inc.py`` (the summation-density
-tier, ``method="pallas_inc"``, on one card).  The plane stack (6 pos/vel
-channels + 1 id channel) is the state; flat particle arrays exist only at
-the API boundary (``to_planes`` / ``to_flat``).  Each step
-(``step_planes``):
+Counterpart: ``gpufluidsimulator_tpu/ops/inc.py`` on one card: the
+summation-density tier (``method="pallas_inc"``) and the continuity tier
+(``method="pallas_inc_cont"``).  The plane stack (6 pos/vel channels + 1 id
+channel, + the carried density on the continuity tier) is the state; flat
+particle arrays exist only at the API boundary (``to_planes`` /
+``to_flat``).  Each step (``step_planes``):
 
   halo -> occupancy bounds (``occ_rowmax``) -> density sweep (``density``)
   -> fused force + EOS + integrate + collide + mover flag (``force_step``)
   -> mover extraction (``compact``) -> one sort of the movers by target
   cell + a per-cell start table -> ``consolidate`` (kept + arriving ranks
   packed into K dense ranks, ghost slots re-sanitized).
+
+On the continuity tier the density sweep runs only to seed or re-sync the
+carried plane (``RESUM_EVERY``); ``force_step_cont`` reads the carried rho
+and writes next step's, which rides the movers as an 8th channel and goes
+through ``consolidate_rho``.
 
 The reference's arrival planes (a second mover sort and ``place`` in its
 ``skip_empty`` form, inc.py:625-723) exist because the TPU cannot scatter;
@@ -20,14 +26,15 @@ in the reference's ``lax.scan``.
 
 Hopper kernels of this module: ``compact`` (``csrc/compact.cu``, the
 reference's ``_compact_kernel`` + ``_stitch_kernel``) and ``consolidate``
-(``csrc/consolidate.cu``, ``_consolidate_kernel``), each beside its plain
-PyTorch version, which the wrappers take for CPU tensors only.
+/ ``consolidate_rho`` (``csrc/consolidate.cu``, ``_consolidate_kernel``
+without and with ``has_rho``), each beside its plain PyTorch version,
+which the wrappers take for CPU tensors only.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,6 +55,10 @@ TILE = 64 * LANES      # the reference's routing tile (route.TILE): the unit
 MAX_F32_ID = 2 ** 24   # ids ride the planes as float32: exact below this
 MAX_COMPACT_CHANNELS = 8   # channels the CUDA compact takes
 # (csrc/compact.cu CMP_MAX_CH)
+RESUM_EVERY = 64       # continuity tier, cont_form="rate": steps between
+# summation-density re-syncs of the carried plane (the reference's
+# inc.py:70); "sum" and "relax" re-anchor in the sweep and resum only at
+# age 0.  Read at call time, so it can be patched.
 
 
 def mover_capacity(n: int) -> int:
@@ -65,6 +76,11 @@ class IncState(NamedTuple):
     fields6: torch.Tensor       # (6, K, pz, n_bx, py, 128) x,y,z,vx,vy,vz
     idp: torch.Tensor           # (K, pz, n_bx, py, 128) particle id as f32
     overflow: torch.Tensor      # () int32 capacity drops (movers, cells)
+    rhop: Optional[torch.Tensor] = None   # continuity tier: the carried
+    #                             density plane (K, ...); None otherwise
+    age: Optional[int] = None   # continuity tier: steps since to_planes, a
+    #                             host int (the resum choice never waits
+    #                             for the card); None otherwise
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +167,7 @@ def compact(channels, flags: torch.Tensor, cap: int):
 class Arrivals(NamedTuple):
     """Movers grouped by target cell: sorted row j is ``movers[:, order[j]]``
     and cell c's arrivals are sorted rows ``starts[c]:starts[c + 1]``."""
-    movers: torch.Tensor      # (7, m_cap) f32
+    movers: torch.Tensor      # (7, m_cap) f32; (8, m_cap) with rho
     order: torch.Tensor       # (m_cap,) int64
     starts: torch.Tensor      # (cells + 1,) int32
 
@@ -177,15 +193,22 @@ def arrival_planes(movers, m, params: SimParams,
     return Arrivals(movers=movers, order=order, starts=starts)
 
 
-def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom):
+def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
+                      rhop=None):
     """-> (fields6, idp, dropped): per cell, the kept ranks (valid, interior,
     not flagged; ranks past the first sentinel one are not read) in rank
     order, then up to ARRIVAL_K arrivals, packed into K dense ranks; empty
-    ranks get SENTINEL, 0 and -1."""
+    ranks get SENTINEL, 0 and -1.  With ``rhop`` (the continuity tier; the
+    movers then carry rho in row 7) -> (fields6, idp, rho, dropped), empty
+    ranks' rho 0."""
     k, cells = geom.k, geom.cells
     dev = new6.device
     inter = pm.interior_mask(geom, dev).reshape(1, cells)
-    ext = torch.cat([new6.reshape(6, k, cells), idp.reshape(1, k, cells)])
+    ext = [new6.reshape(6, k, cells), idp.reshape(1, k, cells)]
+    if rhop is not None:
+        ext.append(rhop.reshape(1, k, cells))
+    ext = torch.cat(ext)
+    nf = ext.shape[0]
     upto = torch.cummin((ext[0] < SENTINEL * 0.5).to(torch.int32), dim=0) \
         .values.bool()                          # ranks before a sentinel
     valid_k = upto & inter & (flagp.reshape(k, cells) < 0.5)
@@ -198,66 +221,91 @@ def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom):
     cid_c = torch.clamp_max(cid_s, cells - 1)
     dup = torch.arange(cap, device=dev) - arr.starts[cid_c]
     ok = live & (dup < ARRIVAL_K)
-    arr_ext = torch.zeros((7, ARRIVAL_K, cells), device=dev)
+    arr_ext = torch.zeros((nf, ARRIVAL_K, cells), device=dev)
     valid_a = torch.zeros((ARRIVAL_K, cells), dtype=torch.bool, device=dev)
     rows = arr.movers[:, arr.order[ok]]
     arr_ext[:, dup[ok], cid_c[ok]] = rows
     valid_a[dup[ok], cid_c[ok]] = True
-    ext = torch.cat([ext, arr_ext], dim=1)                 # (7, K+A, cells)
+    ext = torch.cat([ext, arr_ext], dim=1)                # (nf, K+A, cells)
     valid = torch.cat([valid_k, valid_a])
     rank = torch.cumsum(valid, dim=0) - valid.to(torch.int64)
     keep = valid & (rank < k)
     dropped = (torch.sum(live & ~ok) + torch.sum(valid & ~keep)) \
         .to(torch.int32)
-    fill = torch.tensor([SENTINEL] * 3 + [0.0] * 3 + [-1.0], device=dev)
+    fill = torch.tensor([SENTINEL] * 3 + [0.0] * 3 + [-1.0, 0.0][:nf - 6],
+                        device=dev)
     out = fill[:, None, None].repeat(1, k, cells)
     src, cell = torch.nonzero(keep, as_tuple=True)
     out[:, rank[src, cell], cell] = ext[:, src, cell]
     shape = (k, geom.pz, geom.n_bx, geom.py, LANES)
-    return out[:6].reshape((6,) + shape), out[6].reshape(shape), dropped
+    planes = [out[:6].reshape((6,) + shape), out[6].reshape(shape)]
+    if rhop is not None:
+        planes.append(out[7].reshape(shape))
+    return (*planes, dropped)
 
 
-def consolidate(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom):
+def consolidate(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
+                rhop=None):
     """Per-cell consolidation: the CUDA kernel ``consolidate`` on the card,
     the plain version for CPU tensors.  Returns (fields6, idp, dropped),
     dropped = sum over cells of max(arrivals - ARRIVAL_K, 0)
-    + max(kept + min(arrivals, ARRIVAL_K) - K, 0), a () int32 tensor."""
+    + max(kept + min(arrivals, ARRIVAL_K) - K, 0), a () int32 tensor.
+    With ``rhop`` (movers of 8 rows): the kernel ``consolidate_rho``, and
+    (fields6, idp, rho, dropped)."""
     if new6.device.type == "cpu":
-        return consolidate_plain(new6, idp, flagp, arr, geom)
+        return consolidate_plain(new6, idp, flagp, arr, geom, rhop)
     shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
     _build.check_tensor(new6, "new6", torch.float32, (6,) + shape)
     _build.check_tensor(idp, "idp", torch.float32, shape)
     _build.check_tensor(flagp, "flagp", torch.float32, shape)
     cap = arr.movers.shape[1]
-    _build.check_tensor(arr.movers, "movers", torch.float32, (7, cap))
+    _build.check_tensor(arr.movers, "movers", torch.float32,
+                        (7 if rhop is None else 8, cap))
     _build.check_tensor(arr.order, "order", torch.int64, (cap,))
     _build.check_tensor(arr.starts, "starts", torch.int32,
                         (geom.cells + 1,))
     out6 = torch.empty_like(new6)
     oid = torch.empty_like(idp)
     dropped = torch.zeros((), dtype=torch.int32, device=new6.device)
-    _build.launch("consolidate", new6,
-                  _build.ptr(new6), _build.ptr(idp), _build.ptr(flagp),
-                  _build.ptr(arr.movers), ctypes.c_longlong(cap),
-                  _build.ptr(arr.order), _build.ptr(arr.starts),
-                  _build.ptr(out6), _build.ptr(oid), _build.ptr(dropped),
-                  *sph._geom_args(geom), ctypes.c_int(ARRIVAL_K))
-    return out6, oid, dropped
+    tail = [_build.ptr(dropped), *sph._geom_args(geom),
+            ctypes.c_int(ARRIVAL_K)]
+    if rhop is None:
+        _build.launch("consolidate", new6,
+                      _build.ptr(new6), _build.ptr(idp), _build.ptr(flagp),
+                      _build.ptr(arr.movers), ctypes.c_longlong(cap),
+                      _build.ptr(arr.order), _build.ptr(arr.starts),
+                      _build.ptr(out6), _build.ptr(oid), *tail)
+        return out6, oid, dropped
+    _build.check_tensor(rhop, "rhop", torch.float32, shape)
+    orho = torch.empty_like(rhop)
+    _build.launch("consolidate_rho", new6,
+                  _build.ptr(new6), _build.ptr(idp), _build.ptr(rhop),
+                  _build.ptr(flagp), _build.ptr(arr.movers),
+                  ctypes.c_longlong(cap), _build.ptr(arr.order),
+                  _build.ptr(arr.starts), _build.ptr(out6), _build.ptr(oid),
+                  _build.ptr(orho), *tail)
+    return out6, oid, orho, dropped
 
 
 # ---------------------------------------------------------------------------
 # API-boundary conversions
 # ---------------------------------------------------------------------------
 
-def to_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom) -> IncState:
+def to_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
+              continuity: bool = False) -> IncState:
     """Full rebuild (``build_planes`` with the id channel) into the carried
-    state."""
+    state.  ``continuity``: attach the continuity tier's carried density,
+    zeros at age 0 (the first step's seeding sweep fills it before the EOS
+    reads it)."""
     if pos.shape[0] > MAX_F32_ID:
         raise ValueError(f"the planes carry ids as float32, exact for at "
                          f"most {MAX_F32_ID} particles; got {pos.shape[0]}")
     table = pm.build_planes(pos, vel, ids, params, geom, with_ids=True)
-    return IncState(fields6=table.planes[:6], idp=table.planes[6],
-                    overflow=table.overflow)
+    idp = table.planes[6]
+    return IncState(fields6=table.planes[:6], idp=idp,
+                    overflow=table.overflow,
+                    rhop=torch.zeros_like(idp) if continuity else None,
+                    age=0 if continuity else None)
 
 
 def _valid_slots(state: IncState, geom: PlaneGeom) -> torch.Tensor:
@@ -269,7 +317,8 @@ def _valid_slots(state: IncState, geom: PlaneGeom) -> torch.Tensor:
 def to_flat(state: IncState, params: SimParams, geom: PlaneGeom, n: int):
     """Planes -> flat rows (x,y,z,vx,vy,vz,id[,rho]) in slot order and their
     count; callers align by id.  rho comes from one density sweep when
-    ``params.diagnostics`` is set (it is not carried across steps)."""
+    ``params.diagnostics`` is set, on the continuity tier too: the
+    reference does not read the carried plane there (inc.py:1013-1019)."""
     channels = [*state.fields6, state.idp]
     if params.diagnostics:
         halo6 = pm.halo_x(state.fields6)
@@ -289,32 +338,63 @@ def to_flat_lite(state: IncState, geom: PlaneGeom, n: int):
 # the incremental step
 # ---------------------------------------------------------------------------
 
+def resums(state: IncState, params: SimParams) -> bool:
+    """Whether the continuity step at ``state.age`` seeds or re-syncs the
+    carried rho with a density sweep (a host decision: ``age`` is a host
+    int)."""
+    if params.cont_form in ("sum", "relax"):
+        return state.age == 0
+    return state.age % RESUM_EVERY == 0
+
+
 def step_planes(state: IncState, params: SimParams, geom: PlaneGeom,
                 m_cap: int) -> IncState:
-    """One SPH step in plane space (summation density, one card).
+    """One SPH step in plane space (one card).
 
-    The halo lanes of ``state.fields6`` are refilled in place (they hold no
-    particles of their own)."""
+    Continuity tier (``state.rhop`` set): the EOS reads the carried rho
+    plane, and the density sweep runs only when it must seed or re-sync
+    it: at age 0 for ``cont_form`` "sum" and "relax", every RESUM_EVERY-th
+    age for "rate" (the reference's lax.cond, inc.py:1161-1173, here a
+    host branch on the host int ``age``).  ``force_step_cont`` emits next
+    step's rho, which rides the movers as channel 7.
+
+    The halo lanes of ``state.fields6`` (and of the carried rho) are
+    refilled in place (they hold no particles of their own)."""
+    continuity = state.rhop is not None
     planes6 = pm.halo_x(state.fields6)
     occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
-    rho_p = sph.density_planes(planes6[:3], occ_q, occ_s, params, geom)
+    if not continuity or resums(state, params):
+        rho_p = sph.density_planes(planes6[:3], occ_q, occ_s, params, geom)
+    else:
+        rho_p = state.rhop
     rho_h = pm.halo_x(rho_p)
-    new6, flagp = sph.accel_step(planes6, rho_h, occ_q, occ_s, params, geom)
+    if continuity:
+        new6, rho_new, flagp = sph.accel_step_cont(planes6, rho_h, occ_q,
+                                                   occ_s, params, geom)
+        channels = [*new6, state.idp, rho_new]
+    else:
+        new6, flagp = sph.accel_step(planes6, rho_h, occ_q, occ_s, params,
+                                     geom)
+        rho_new = None
+        channels = [*new6, state.idp]
     # the flagged movers straight out of the unblanked post-step planes
     # (flagp is 0 on every slot that is not interior)
-    movers, m, staged_total = compact([*new6, state.idp], flagp, m_cap)
+    movers, m, staged_total = compact(channels, flagp, m_cap)
     arr = arrival_planes(movers, m, params, geom)
-    fields6, idp, dropped = consolidate(new6, state.idp, flagp, arr, geom)
+    *cons, dropped = consolidate(new6, state.idp, flagp, arr, geom, rho_new)
     overflow = state.overflow + (staged_total - m) + dropped
-    return IncState(fields6=fields6, idp=idp, overflow=overflow)
+    return IncState(fields6=cons[0], idp=cons[1], overflow=overflow,
+                    rhop=cons[2] if continuity else None,
+                    age=state.age + 1 if continuity else None)
 
 
 # ---------------------------------------------------------------------------
 # flat-state entry points (solver registry / run)
 # ---------------------------------------------------------------------------
 
-def _convert_in(state, params: SimParams, geom: PlaneGeom) -> IncState:
-    s = to_planes(state.pos, state.vel, state.ids, params, geom)
+def _convert_in(state, params: SimParams, geom: PlaneGeom,
+                continuity: bool) -> IncState:
+    s = to_planes(state.pos, state.vel, state.ids, params, geom, continuity)
     return s._replace(overflow=s.overflow + state.overflow)
 
 
@@ -345,14 +425,16 @@ def physics_eos(rho, params: SimParams):
         torch.clamp_min(rho, 1e-3 * params.rest_density), params)
 
 
-def run_inc(state, params: SimParams, n_steps: int):
+def run_inc(state, params: SimParams, n_steps: int,
+            continuity: bool = False):
     """models.State -> models.State after ``n_steps`` on the incremental
     path: one conversion to planes, a Python loop of ``step_planes`` that
-    never waits for the card, one conversion back."""
+    never waits for the card, one conversion back.  ``continuity``: the
+    continuity tier (carried density, see ``step_planes``)."""
     n = state.n
     geom = pm.geometry(params)
     m_cap = mover_capacity(n)
-    s = _convert_in(state, params, geom)
+    s = _convert_in(state, params, geom, continuity)
     for _ in range(n_steps):
         s = step_planes(s, params, geom, m_cap)
     vals, cnt = to_flat(s, params, geom, n)
@@ -360,16 +442,17 @@ def run_inc(state, params: SimParams, n_steps: int):
 
 
 def rollout_inc(state, params: SimParams, n_steps: int,
-                record_every: int = 1):
+                record_every: int = 1, continuity: bool = False):
     """models.State -> (final State, traj): the planes stay resident for the
     whole rollout and every ``record_every`` steps a position frame is
     compacted out (``to_flat_lite``).  traj is (n_steps // record_every, N,
     dim) in slot order, so rows of different frames may be different
-    particles (dropped rows park at bounds_min)."""
+    particles (dropped rows park at bounds_min).  ``continuity`` as in
+    ``run_inc``."""
     n = state.n
     geom = pm.geometry(params)
     m_cap = mover_capacity(n)
-    s = _convert_in(state, params, geom)
+    s = _convert_in(state, params, geom, continuity)
     lo = params.bounds_min
     frames = []
     for _ in range(n_steps // record_every):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -132,11 +133,69 @@ def _force_constants(params: SimParams):
     return m_spiky, m_visc_sqrt
 
 
+class ContConsts(NamedTuple):
+    """The continuity step's constants, folded on the host in Python floats
+    as the reference folds them (pallas_sph.py:281-372).  ``form`` is
+    ``params.cont_form``, except "delta" for the rate form with
+    ``cont_delta > 0``."""
+    form: str
+    h2: float
+    drho_scale: float        # -6 dt c_poly6 m: the rate accumulator's scale
+    rho_sum_scale: float     # c_poly6 m: the sum form's
+    kappa_d2: float          # relax: the summation folded into the rate
+    one_m_l: float           # relax: 1 - lambda
+    use_corr: bool           # cont_beta > 0: the clamped deferred correction
+    c_corr: float
+    corr_cap: float
+    use_alpha: bool          # cont_alpha > 0: Monaghan's viscosity term
+    c_av: float
+    eps_h2: float
+    kappa: float             # delta: 2 delta h c
+    kappa_over_mv: float     # delta: kappa / m_visc_sqrt
+
+
+# continuity form -> csrc/force.cu FK_CONT_*
+CONT_FORMS = {"rate": 1, "relax": 2, "sum": 3, "delta": 4}
+
+
+def _cont_constants(params: SimParams) -> ContConsts:
+    h, dim, m = params.h, params.dim, params.particle_mass
+    rest = params.rest_density
+    c = params.sound_speed
+    poly6 = kernels.poly6_coef(h, dim)
+    spiky = -kernels.spiky_grad_coef(h, dim)
+    form = params.cont_form
+    if form == "rate" and params.cont_delta > 0.0 and params.viscosity > 0.0:
+        form = "delta"
+    lam = params.cont_relax if form == "relax" else 0.0
+    c_sum = poly6 * m
+    drho = -6.0 * params.dt * poly6 * m
+    m_visc = math.sqrt(kernels.visc_lap_coef(h, dim) * m
+                       * params.viscosity) or 1.0
+    return ContConsts(
+        form=form, h2=h * h, drho_scale=drho, rho_sum_scale=poly6 * m,
+        kappa_d2=(lam * c_sum / ((1.0 - lam) * drho)
+                  if form == "relax" and lam < 1.0 else 0.0),
+        one_m_l=1.0 - lam,
+        use_corr=params.cont_beta > 0.0,
+        c_corr=(params.cont_beta * spiky * m * 12.0 * poly6 * m
+                * params.stiffness * params.dt / (rest ** 2)),
+        corr_cap=spiky * m * params.stiffness * 0.2 / rest,
+        use_alpha=params.cont_alpha > 0.0,
+        c_av=spiky * m * params.cont_alpha * c * h / rest,
+        eps_h2=0.01 * h * h,
+        kappa=2.0 * params.cont_delta * h * c,
+        kappa_over_mv=2.0 * params.cont_delta * h * c / m_visc)
+
+
 def _accel_window(field_planes: torch.Tensor, rho_planes: torch.Tensor,
-                  params: SimParams, geom: PlaneGeom):
-    """The pair loop of both force versions over the interior's bounding
-    box: -> (acc, query), ``acc`` the dim pressure + viscosity accelerations
-    (no gravity) and ``query`` the 6 pos/vel channels, each (K, ...window)."""
+                  params: SimParams, geom: PlaneGeom, cont: ContConsts = None):
+    """The pair loop of every force version over the interior's bounding
+    box: -> (acc, query, sr), ``acc`` the dim pressure + viscosity
+    accelerations (no gravity) and ``query`` the 6 pos/vel channels, each
+    (K, ...window).  With ``cont`` the pair loop also runs the continuity
+    terms (pallas_sph.py:443-456, 469-486) and ``sr`` is the fifth
+    accumulator; else ``sr`` is None."""
     dim = params.dim
     rest = params.rest_density
     m_spiky, m_visc_sqrt = _force_constants(params)
@@ -151,6 +210,11 @@ def _accel_window(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     qp, qir = q[2 * dim], q[2 * dim + 1]
     acc = [torch.zeros_like(q[0][:, 0]) for _ in range(dim)]
     sv = torch.zeros_like(q[0][:, 0])
+    sr = None if cont is None else torch.zeros_like(sv)
+    if cont is not None and cont.form == "delta":
+        # kappa rho_i / m_visc_sqrt from the RAW carried rho; paired with
+        # the candidate's m_visc_sqrt / rho_j it gives kappa rho_i / rho_j
+        qdel = _window(rho_planes, geom)[:, None] * cont.kappa_over_mv
     for dz, dy, dx in _offsets(dim):
         c = [_window(a, geom, dz, dy, dx)[None] for a in chans]
         dd = [q[j] - c[j] for j in range(dim)]
@@ -159,14 +223,38 @@ def _accel_window(field_planes: torch.Tensor, rho_planes: torch.Tensor,
             r2 = r2 + dd[2] * dd[2]
         inv_r = torch.rsqrt(torch.clamp_min(r2, 1e-16))
         hr = torch.clamp_min(params.h - r2 * inv_r, 0.0)
-        coef_p = (qp + c[2 * dim]) * (hr * hr * inv_r)
+        psum = qp + c[2 * dim]
+        if cont is not None:
+            dot = (q[dim] - c[dim]) * dd[0] + (q[dim + 1] - c[dim + 1]) * dd[1]
+            if dim == 3:
+                dot = dot + (q[dim + 2] - c[dim + 2]) * dd[2]
+            d2 = torch.clamp_min(cont.h2 - r2, 0.0)
+            d4 = d2 * d2
+            t_dot = d4 * dot
+            if cont.use_corr:
+                psum = psum - torch.clamp(cont.c_corr * t_dot,
+                                          -cont.corr_cap, cont.corr_cap)
+            if cont.use_alpha:
+                rr = torch.rsqrt(r2 + cont.eps_h2)
+                psum = psum - cont.c_av * torch.clamp_max(dot * (rr * rr),
+                                                          0.0)
+            if cont.form == "sum":
+                w = d4 * d2
+            elif cont.form == "relax":
+                w = d4 * (dot + cont.kappa_d2 * d2)
+            elif cont.form == "delta":
+                w = d4 * ((dot - cont.kappa) + qdel * c[2 * dim + 1])
+            else:
+                w = t_dot
+            sr += torch.sum(w, dim=1)
+        coef_p = psum * (hr * hr * inv_r)
         coef_v = hr * (qir * c[2 * dim + 1])
         sv += torch.sum(coef_v, dim=1)
         for j in range(dim):
             acc[j] += torch.sum(coef_p * dd[j] + coef_v * c[dim + j], dim=1)
     query = [_window(field_planes[j], geom) for j in range(6)]
     acc = [acc[j] - query[3 + j] * sv for j in range(dim)]
-    return acc, query
+    return acc, query, sr
 
 
 def _eos_args(params: SimParams):
@@ -187,7 +275,7 @@ def accel_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                 params: SimParams, geom: PlaneGeom) -> torch.Tensor:
     """(6, K, ...) pos/vel planes + (K, ...) density -> (3, K, ...)
     pressure + viscosity acceleration (no gravity)."""
-    acc, _ = _accel_window(field_planes, rho_planes, params, geom)
+    acc, _, _ = _accel_window(field_planes, rho_planes, params, geom)
     mask = _query_mask(field_planes[0], geom)
     out = torch.zeros((3,) + tuple(field_planes.shape[1:]),
                       dtype=torch.float32, device=field_planes.device)
@@ -244,8 +332,15 @@ def accel_step_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     ``floor((x - lo) * (1/cell))``, pallas_sph.py:552-578) or left the x
     slab.  Every other slot holds the sentinel (positions) or 0 (velocities,
     flag)."""
+    acc, q, _ = _accel_window(field_planes, rho_planes, params, geom)
+    return _step_epilogue(acc, q, field_planes, params, geom)
+
+
+def _step_epilogue(acc, q, field_planes: torch.Tensor, params: SimParams,
+                   geom: PlaneGeom):
+    """Integrate, collide and flag the movers of the window's queries ->
+    (new6, flagp) planes (see ``accel_step_plain``)."""
     dim = params.dim
-    acc, q = _accel_window(field_planes, rho_planes, params, geom)
     grav = params.gravity
     dt = params.dt
     vs = [q[3 + c] + (acc[c] + grav[c]) * dt for c in range(dim)]
@@ -304,15 +399,8 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     halo lanes."""
     if field_planes.device.type == "cpu":
         return accel_step_plain(field_planes, rho_planes, params, geom)
-    shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
-    _build.check_tensor(field_planes, "field_planes", torch.float32,
-                        (6,) + shape)
-    _build.check_tensor(rho_planes, "rho_planes", torch.float32, shape)
-    _check_bounds(occ_q, occ_s, geom)
-    if len(params.obstacles) > MAX_KERNEL_OBSTACLES:
-        raise ValueError(f"the CUDA force_step takes at most "
-                         f"{MAX_KERNEL_OBSTACLES} obstacles, got "
-                         f"{len(params.obstacles)}")
+    shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
+                               params, geom)
     step = _step_args(params)
     new6 = torch.empty((6,) + shape, dtype=torch.float32,
                        device=field_planes.device)
@@ -325,6 +413,94 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                   ctypes.cast(step, ctypes.c_void_p),
                   ctypes.c_int(len(params.obstacles)))
     return new6, flagp
+
+
+def _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
+                       params: SimParams, geom: PlaneGeom):
+    """Raise on what the fused CUDA step does not take; -> a plane's shape."""
+    shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
+    _build.check_tensor(field_planes, "field_planes", torch.float32,
+                        (6,) + shape)
+    _build.check_tensor(rho_planes, "rho_planes", torch.float32, shape)
+    _check_bounds(occ_q, occ_s, geom)
+    if len(params.obstacles) > MAX_KERNEL_OBSTACLES:
+        raise ValueError(f"the CUDA force step takes at most "
+                         f"{MAX_KERNEL_OBSTACLES} obstacles, got "
+                         f"{len(params.obstacles)}")
+    return shape
+
+
+# --------------------------------------------------------------------------
+# kernel 4c: the fused step of the continuity tier
+# --------------------------------------------------------------------------
+
+def accel_step_cont_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
+                          params: SimParams, geom: PlaneGeom):
+    """(6, K, ...) pos/vel planes + (K, ...) CARRIED density -> (new6,
+    rho_new, flagp): ``accel_step_plain`` with the continuity terms in the
+    pair loop (the reference's ``accel_planes(..., continuity=True)``).
+
+    The EOS reads max(rho, 1e-3 rho0); the pair loop adds the clamped
+    deferred correction (``cont_beta > 0``) and Monaghan's term
+    (``cont_alpha > 0``) to the pressure sum and accumulates ``sr`` in the
+    form of ``params.cont_form`` (pallas_sph.py:443-486).  rho_new
+    (pallas_sph.py:588-606), from the query's RAW carried rho_q:
+      sum:   c_poly6 m sr;
+      relax: (1 - lambda) (rho_q + drho_scale sr);
+      rate:  rho_q + drho_scale sr  (with the delta-SPH term in sr when
+             ``cont_delta > 0``);
+    and 0 on every slot that is not a valid rank of an interior cell."""
+    cont = _cont_constants(params)
+    acc, q, sr = _accel_window(field_planes, rho_planes, params, geom, cont)
+    new6, flagp = _step_epilogue(acc, q, field_planes, params, geom)
+    if cont.form == "sum":
+        rho_new = cont.rho_sum_scale * sr
+    else:
+        rho_q = _window(rho_planes, geom)
+        rho_new = rho_q + cont.drho_scale * sr
+        if cont.form == "relax":
+            rho_new = cont.one_m_l * rho_new
+    out = torch.zeros_like(field_planes[0])
+    _window(out, geom)[...] = torch.where(
+        _query_mask(field_planes[0], geom), rho_new, 0.0)
+    return new6, out, flagp
+
+
+def _cont_args(params: SimParams):
+    """The continuity constants as csrc/force.cu takes them: the form
+    (CONT_FORMS), the two switches, then the float array of FkCont."""
+    c = _cont_constants(params)
+    vals = [c.h2, c.drho_scale, c.rho_sum_scale, c.kappa_d2, c.one_m_l,
+            c.c_corr, c.corr_cap, c.c_av, c.eps_h2, c.kappa, c.kappa_over_mv]
+    return [ctypes.c_int(CONT_FORMS[c.form]), ctypes.c_int(c.use_corr),
+            ctypes.c_int(c.use_alpha),
+            ctypes.cast((ctypes.c_float * len(vals))(*vals),
+                        ctypes.c_void_p)]
+
+
+def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
+                    occ_q: torch.Tensor, occ_s: torch.Tensor,
+                    params: SimParams, geom: PlaneGeom):
+    """The fused force step of the continuity tier (see
+    ``accel_step_cont_plain``): the CUDA kernel ``force_step_cont`` on the
+    card, the plain version for CPU tensors.  ``rho_planes`` is the carried
+    density with refreshed halo lanes."""
+    if field_planes.device.type == "cpu":
+        return accel_step_cont_plain(field_planes, rho_planes, params, geom)
+    shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
+                               params, geom)
+    step = _step_args(params)
+    dev = field_planes.device
+    new6 = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
+    rho_new = torch.empty(shape, dtype=torch.float32, device=dev)
+    flagp = torch.empty(shape, dtype=torch.float32, device=dev)
+    _build.launch("force_step_cont", field_planes,
+                  _build.ptr(field_planes), _build.ptr(rho_planes),
+                  _build.ptr(new6), _build.ptr(rho_new), _build.ptr(flagp),
+                  *_geom_args(geom), *_eos_args(params),
+                  ctypes.cast(step, ctypes.c_void_p),
+                  ctypes.c_int(len(params.obstacles)), *_cont_args(params))
+    return new6, rho_new, flagp
 
 
 # --------------------------------------------------------------------------

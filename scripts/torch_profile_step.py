@@ -3,6 +3,8 @@
     python3 scripts/torch_profile_step.py [--n 262144] [--dim 3] [--steps 10]
     python3 scripts/torch_profile_step.py --method pallas_inc \
         --scene double_dam_break --n 1000000 --warm 100
+    python3 scripts/torch_profile_step.py --method pallas_inc_cont \
+        --scene double_dam_break --n 1000000 --warm 100
 
 ``--method pallas`` (default) runs the phases of the full-rebuild
 ``ops.sph.step_pallas`` one by one with CUDA events between them (binning
@@ -10,7 +12,10 @@ incl. the place kernel, occupancy bounds, density, halo refresh, force,
 gather, integrate); ``--method pallas_inc`` those of the incremental
 ``ops.inc.step_planes`` (occupancy bounds, density, force_step, compact,
 mover sort + start table, consolidate), after ``--warm`` full-rebuild
-steps as bench.py warms its early operating point.  Both are averaged over
+steps as bench.py warms its early operating point; ``--method
+pallas_inc_cont`` those of its continuity tier (the density phase then
+runs only at a re-sum age: the carried rho is seeded by one sweep and the
+age starts at 1, as bench.py times it).  All are averaged over
 ``--steps`` steps and followed by a ``torch.profiler`` trace of whole
 steps, summed by kernel name, with the device busy share of that window.
 Prints JSON lines; needs a CUDA card.  Imports nothing of JAX.
@@ -37,7 +42,7 @@ def main() -> int:
     ap.add_argument("--scene", default="dam_break",
                     choices=["dam_break", "double_dam_break"])
     ap.add_argument("--method", default="pallas",
-                    choices=["pallas", "pallas_inc"])
+                    choices=["pallas", "pallas_inc", "pallas_inc_cont"])
     ap.add_argument("--warm", type=int, default=3)
     args = ap.parse_args()
 
@@ -52,15 +57,17 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     params, state = ft.scenes.SCENES[args.scene](n=args.n, dim=args.dim)
-    if args.method == "pallas_inc":
+    inc_path = args.method != "pallas"
+    if inc_path:
         params = params.replace(diagnostics=False)     # as bench.py:59
     sim = ft.FluidSim(params, state, method="pallas")
     sim.step(args.warm)
     torch.cuda.synchronize()
     geom = pm.geometry(params)
-    if args.method == "pallas_inc":
+    if inc_path:
         phases, step = _inc_phases(torch, params, geom, sim.state,
-                                   args.steps)
+                                   args.steps,
+                                   args.method == "pallas_inc_cont")
     else:
         phases = _full_phases(torch, params, geom, sim.state, args.steps)
         step = sim.step
@@ -75,17 +82,26 @@ def main() -> int:
     return 0
 
 
-def _inc_phases(torch, params, geom, state, steps):
-    """CUDA-event phases of ``inc.step_planes``; returns them and a function
-    that runs whole steps on the resident planes."""
+def _inc_phases(torch, params, geom, state, steps, continuity):
+    """CUDA-event phases of ``inc.step_planes`` (its continuity tier with
+    ``continuity``); returns them and a function that runs whole steps on
+    the resident planes."""
     from gpufluidsimulator_torch.ops import inc, sph
     from gpufluidsimulator_torch.ops import planes as pm
 
-    names = ["occupancy_bounds", "density", "force_step", "compact",
+    force = "force_step_cont" if continuity else "force_step"
+    names = ["occupancy_bounds", "density", force, "compact",
              "mover_sort_starts", "consolidate_overflow"]
     totals = dict.fromkeys(names, 0.0)
     m_cap = inc.mover_capacity(state.n)
-    s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
+    s = inc.to_planes(state.pos, state.vel, state.ids, params, geom,
+                      continuity)
+    if continuity:
+        # bench.py:76-84: rho seeded by one density sweep, age from 1
+        p6 = pm.halo_x(s.fields6)
+        occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
+        s = s._replace(rhop=sph.density_planes(p6[:3], occ_q, occ_s, params,
+                                               geom), age=1)
     movers_total = 0
     for _ in range(steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
@@ -93,18 +109,31 @@ def _inc_phases(torch, params, geom, state, steps):
         p6 = pm.halo_x(s.fields6)
         occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
         ev[1].record()
-        rho = pm.halo_x(sph.density_planes(p6[:3], occ_q, occ_s, params,
-                                           geom))
+        if continuity and not inc.resums(s, params):
+            rho = pm.halo_x(s.rhop)
+        else:
+            rho = pm.halo_x(sph.density_planes(p6[:3], occ_q, occ_s,
+                                               params, geom))
         ev[2].record()
-        new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
+        if continuity:
+            new6, rho_new, flagp = sph.accel_step_cont(p6, rho, occ_q,
+                                                       occ_s, params, geom)
+            chans = [*new6, s.idp, rho_new]
+        else:
+            new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params,
+                                         geom)
+            rho_new, chans = None, [*new6, s.idp]
         ev[3].record()
-        movers, m, total = inc.compact([*new6, s.idp], flagp, m_cap)
+        movers, m, total = inc.compact(chans, flagp, m_cap)
         ev[4].record()
         arr = inc.arrival_planes(movers, m, params, geom)
         ev[5].record()
-        f6, idp, dropped = inc.consolidate(new6, s.idp, flagp, arr, geom)
-        s = inc.IncState(fields6=f6, idp=idp,
-                         overflow=s.overflow + (total - m) + dropped)
+        *cons, dropped = inc.consolidate(new6, s.idp, flagp, arr, geom,
+                                         rho_new)
+        s = inc.IncState(fields6=cons[0], idp=cons[1],
+                         overflow=s.overflow + (total - m) + dropped,
+                         rhop=cons[2] if continuity else None,
+                         age=s.age + 1 if continuity else None)
         ev[6].record()
         torch.cuda.synchronize()
         movers_total += int(m)

@@ -9,13 +9,14 @@ Imports nothing of JAX, so it runs on a machine without it:
 Small scenes that reach the branches the config-3 and config-4 checks in
 ``chip_smoke.py`` do not: 2D, several x tiles (halo lanes), the Tait EOS,
 a cell capacity of 16 (the kernels' second register width), particles
-inside both obstacles and through the walls, and forced drops.
+inside both obstacles and through the walls, forced drops, and every form
+and switch of the continuity step.
 Tolerances as in ``chip_smoke.py``: occupancy, placement, gather,
 compaction and consolidation exact; density relative 1e-5 and force 1e-4
-(summation order and ``rsqrtf``); the fused force step relative 1e-6 on
-positions and 1e-4 on velocities, with mover flags equal except on slots
-within 1e-5 of a cell face (FMA contraction moves a position by a
-rounding).
+(summation order and ``rsqrtf``); the fused force steps relative 1e-6 on
+positions and 1e-4 on velocities, the continuity step's rho relative
+1e-5, with mover flags equal except on slots within 1e-5 of a cell face
+(FMA contraction moves a position by a rounding).
 """
 
 import numpy as np
@@ -98,9 +99,8 @@ def test_kernels_match_plain(cuda, case):
     assert torch.equal(got, route.gather_plain(stack, table.slot))
     torch.cuda.synchronize()
     # occ_rowmax twice: directly and through occupancy_bounds
-    want_counts = {"occ_rowmax": 2, "place": 1, "density": 1, "force": 1,
-                   "gather": 1, "force_step": 0, "compact": 0,
-                   "consolidate": 0}
+    want_counts = dict.fromkeys(before, 0)
+    want_counts.update(occ_rowmax=2, place=1, density=1, force=1, gather=1)
     assert {k: _build.launches[k] - before[k] for k in before} == want_counts
 
 
@@ -226,9 +226,9 @@ def test_inc_kernels_match_plain(cuda, case):
         assert torch.equal(a, b)
     torch.cuda.synchronize()
     # occ_rowmax and density once each in _inc_inputs, place in to_planes
-    assert {k: _build.launches[k] - before[k] for k in before} == {
-        "occ_rowmax": 0, "place": 0, "density": 0, "force": 0, "gather": 0,
-        "force_step": 1, "compact": 2, "consolidate": 1}
+    want = dict.fromkeys(before, 0)
+    want.update(force_step=1, compact=2, consolidate=1)
+    assert {k: _build.launches[k] - before[k] for k in before} == want
 
 
 def test_consolidate_forced_drops_match_plain(cuda):
@@ -321,3 +321,132 @@ def test_step_planes_never_waits_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(s.fields6).all()
+
+
+CONT_CASES = {"rate": dict(cont_form="rate"),
+              "relax": dict(cont_form="relax"),
+              "sum": dict(cont_form="sum"),
+              "alpha": dict(cont_form="rate", cont_alpha=0.1),
+              "delta": dict(cont_form="rate", cont_delta=0.1),
+              "beta0": dict(cont_form="rate", cont_beta=0.0)}
+
+
+def _carried_rho(rho, p6, geom, seed=3):
+    """A carried density: the summation density times numpy noise."""
+    valid = (p6[0] < pm.SENTINEL * 0.5) & \
+        pm.interior_mask(geom, p6.device)[None]
+    noise = np.random.default_rng(seed).normal(size=tuple(rho.shape))
+    out = rho * (1.0 + 0.05 * torch.from_numpy(noise).to(rho))
+    return pm.halo_x(torch.where(valid, out, 0.0).contiguous())
+
+
+@pytest.mark.parametrize("form", list(CONT_CASES))
+@pytest.mark.parametrize("case", INC_CASES)
+def test_force_step_cont_matches_plain(cuda, case, form):
+    """force_step_cont against its plain version in every form and switch,
+    in 2D and 3D (with particles inside both obstacles), over several x
+    tiles and at K = 16; one launch, and no other kernel."""
+    params, state = _inc_scene(case)
+    params = params.replace(**CONT_CASES[form])
+    geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
+    rho = _carried_rho(rho, p6, geom)
+    before = dict(_build.launches)
+    new6, rho_new, flagp = sph.accel_step_cont(p6, rho, occ_q, occ_s,
+                                               params, geom)
+    torch.cuda.synchronize()
+    launched = {k: _build.launches[k] - before[k] for k in before}
+    new6_p, rho_p, flag_p = sph.accel_step_cont_plain(p6, rho, params, geom)
+    _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom)
+    valid = (p6[0] < pm.SENTINEL * 0.5) & \
+        pm.interior_mask(geom, p6.device)[None]
+    assert _rel(rho_new[valid], rho_p[valid]) <= 1e-5
+    assert torch.equal(rho_new[~valid], rho_p[~valid])
+    assert int((flagp > 0.5).sum()) >= 0.01 * state.n
+    assert launched == {k: int(k == "force_step_cont") for k in before}
+
+
+@pytest.mark.parametrize("case", INC_CASES)
+def test_rho_mover_path_matches_plain(cuda, case):
+    """The 8-channel compact and consolidate_rho against their plain
+    versions, exact; the 7 shared planes equal the summation tier's
+    consolidate on the same movers."""
+    params, state = _inc_scene(case)
+    geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
+    rho = _carried_rho(rho, p6, geom)
+    new6, rho_new, flagp = sph.accel_step_cont(p6, rho, occ_q, occ_s,
+                                               params, geom)
+    m_cap = inc.mover_capacity(state.n)
+    chans = [*new6, s.idp, rho_new]
+    before = dict(_build.launches)
+    movers, m, total = inc.compact(chans, flagp, m_cap)
+    want = inc.compact_plain(chans, flagp, m_cap)
+    assert movers.shape[0] == 8 and torch.equal(movers, want[0])
+    assert int(m) == int(want[1]) and int(total) == int(want[2]) > 0
+    arr = inc.arrival_planes(movers, m, params, geom)
+    got = inc.consolidate(new6, s.idp, flagp, arr, geom, rhop=rho_new)
+    want = inc.consolidate_plain(new6, s.idp, flagp, arr, geom, rho_new)
+    assert len(got) == 4
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    seven = inc.consolidate(new6, s.idp, flagp,
+                            arr._replace(movers=movers[:7].contiguous()),
+                            geom)
+    for a, b in zip(seven, (got[0], got[1], got[3])):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(before, 0)
+    want.update(compact=1, consolidate_rho=1, consolidate=1)
+    assert {k: _build.launches[k] - before[k] for k in before} == want
+
+
+@pytest.mark.parametrize("case", INC_CASES)
+def test_inc_cont_run_on_card_matches_cpu(cuda, case, monkeypatch):
+    """Three pallas_inc_cont steps on the card against the port's CPU path
+    (rate with RESUM_EVERY = 2, so step 3 re-sums), re-aligned by ids: pos
+    1e-5, vel 1e-3, and the carried rho keyed by id 1e-5."""
+    monkeypatch.setattr(inc, "RESUM_EVERY", 2)
+    params, state = _scene(case) if case == "multi_tile" else \
+        _scene("2d" if case == "2d" else "3d")
+    if case == "3d_k16":
+        params = params.replace(cell_capacity=16)
+    gpu = ft.run(state, params, 3, method="pallas_inc_cont", device=cuda)
+    cpu = ft.run(state, params, 3, method="pallas_inc_cont", device="cpu")
+    assert int(gpu.overflow) == int(cpu.overflow)
+    og = np.argsort(gpu.ids.cpu().numpy())
+    oc = np.argsort(cpu.ids.numpy())
+    assert _rel(gpu.pos.cpu()[og], cpu.pos[oc]) <= 1e-5
+    assert _rel(gpu.vel.cpu()[og], cpu.vel[oc]) <= 1e-3
+    geom = pm.geometry(params)
+    rhos = []
+    for dev in (cuda, "cpu"):
+        s = inc.to_planes(*(t.to(dev) for t in
+                            (state.pos, state.vel, state.ids)), params, geom,
+                          continuity=True)
+        for _ in range(3):
+            s = inc.step_planes(s, params, geom, inc.mover_capacity(state.n))
+        valid = (s.fields6[0] < pm.SENTINEL * 0.5) & \
+            pm.interior_mask(geom, s.idp.device)[None]
+        ids = s.idp[valid].long().cpu()
+        rho = torch.zeros(state.n, dtype=torch.float32)
+        rho[ids] = s.rhop[valid].cpu()
+        rhos.append(rho)
+    assert _rel(rhos[0], rhos[1]) <= 1e-5
+
+
+def test_cont_step_planes_never_waits_for_the_card(cuda):
+    """The continuity step at age 0 (seeding sweep) and age 1 (carried rho)
+    under sync debug mode "error"."""
+    params, state = _inc_scene("3d_collide")
+    geom = pm.geometry(params)
+    s = inc.to_planes(*(t.to(cuda) for t in
+                        (state.pos, state.vel, state.ids)), params, geom,
+                      continuity=True)
+    m_cap = inc.mover_capacity(state.n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            s = inc.step_planes(s, params, geom, m_cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert s.age == 2 and torch.isfinite(s.rhop).all()

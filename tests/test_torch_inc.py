@@ -357,16 +357,20 @@ def test_facade_and_rollout():
 
 
 def test_guards(monkeypatch):
-    """IncState carries the summation tier's state only and step_planes
-    takes no sharded arguments; float32 ids cap to_planes; the continuity
-    tier raises naming ROADMAP."""
-    assert tinc.IncState._fields == ("fields6", "idp", "overflow")
+    """IncState carries the one-card state of both tiers (the continuity
+    tier's rhop and age, None on the summation tier) and step_planes takes
+    no sharded arguments; float32 ids cap to_planes; an unported method
+    raises naming ROADMAP."""
+    assert tinc.IncState._fields == ("fields6", "idp", "overflow", "rhop",
+                                     "age")
     assert list(inspect.signature(tinc.step_planes).parameters) == [
         "state", "params", "geom", "m_cap"]
     tp, ts = tfs.scenes.dam_break(n=300, dim=2, device="cpu")
     geom = tpm.geometry(tp)
+    s = tinc.to_planes(ts.pos, ts.vel, ts.ids, tp, geom)
+    assert s.rhop is None and s.age is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.run(ts, tp, 2, method="pallas_inc_cont", device="cpu")
+        tfs.run(ts, tp, 2, method="gridded", device="cpu")
     monkeypatch.setattr(tinc, "MAX_F32_ID", ts.n - 1)
     with pytest.raises(ValueError, match="float32"):
         tinc.to_planes(ts.pos, ts.vel, ts.ids, tp, geom)

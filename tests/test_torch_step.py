@@ -180,10 +180,14 @@ def test_physics_matches_jax():
 
 
 def test_methods_and_auto_resolution():
-    for m in ("gridded", "pallas_inc_cont", "native"):
+    for m in ("gridded", "native"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsolver.resolve_method(m, 100)
     assert tsolver.resolve_method("pallas_inc", 100) == "pallas_inc"
+    assert tsolver.resolve_method("pallas_inc_cont", 100) \
+        == "pallas_inc_cont"
+    assert tsolver._run_method("pallas_inc_cont", 16, 40000) \
+        == "pallas_inc_cont"
     with pytest.raises(ValueError):
         tsolver.resolve_method("nope", 100)
     assert tsolver.resolve_method("auto", 8192) == "naive"
