@@ -38,7 +38,17 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               compact and consolidate_rho
   6. the kernels line, the card line, and the final ok line.
 Phase 3 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
-then sum) on the card against the port's CPU path, with the carried rho.
+then sum) on the card against the port's CPU path, with the carried rho,
+one FluidSim(method="gridded") step (2D n=600, 3D n=1,200) and the packed
+sweep's accel_mxu (a settled 3D scene of 1,080 particles) likewise.
+Phase 4 also runs config 2, the 2D dam break of 65,522 particles, for 200
+steps through FluidSim(method="gridded") (plain PyTorch: no kernel).
+Phase 5 also runs the packed-pair sweep on the evolved double dam break:
+accel_mxu with the launch counts zeroed, the kernel against its plain
+version, its padding accounting (table_stats and the exact 27-cell pair
+ideal), its time and bound, and the rank-plane accel_planes (force) on the
+same positions, velocities and density, timed and held within 1e-6 of its
+largest acceleration.
 Imports nothing of JAX or of gpufluidsimulator_tpu.
 """
 
@@ -59,6 +69,14 @@ FORCE_PAIR_FLOPS = 32
 # the continuity step's default form (rate, cont_beta > 0) adds dv.d (8),
 # d2 (2), d4, d4 dot, the clamped correction (4) and the rate sum
 FORCE_CONT_PAIR_FLOPS = FORCE_PAIR_FLOPS + 17
+# the packed sweep (csrc/packed_sweep.cu): every candidate pair costs the
+# difference, r^2, max, rsqrt, r, h - r, max and the two tests; a pair
+# inside the support adds the two coefficients (7) and the six
+# multiply-adds with the three velocity differences (15).  Its bound counts
+# the pairs of the exact 27-cell candidate set, as the rank-plane force
+# bound does, not the padded pairs its three ranges cover.
+PACKED_PAIR_FLOPS = 15
+PACKED_SUPPORT_FLOPS = 22
 REPS = 20
 WARM_EARLY = 100            # bench.py's operating points
 WARM_EVOLVED = 2000
@@ -242,9 +260,11 @@ def phase_kernels(torch, ft):
         slot_ok = slot[ok].to(torch.int64)
         vals_ok = fields[:, ok]
         chan = torch.arange(6, device=dev)[:, None]
+        # out of place: a copy of the sentinel-filled planes with the
+        # particles scattered in, the whole function of place
         prefilled = route.place_plain(fields[:, :0], slot[:0], ok[:0], geom,
                                       3).reshape(6, -1)
-        cases["place"]["library"] = lambda: prefilled.index_put_(
+        cases["place"]["library"] = lambda: prefilled.index_put(
             (chan, slot_ok[None, :]), vals_ok)
 
         for name, c in cases.items():
@@ -310,6 +330,51 @@ def phase_parity(torch, ft):
         emit({"phase": "parity", "dim": dim, "n": state.n,
               "rel_err": errs, "tol": {"rho": 1e-5, "pos": 1e-6,
                                        "vel": 1e-4}})
+
+
+def settled_packed_input(ft, n, steps):
+    """A 3D dam break settled by a few all-pairs steps on the CPU, with its
+    summation density and pressure (tests/test_torch_mxu.py's input)."""
+    from gpufluidsimulator_torch.ops import naive, physics
+    params, state = ft.scenes.dam_break(n=n, dim=3, jitter=0.3, seed=3,
+                                        device="cpu")
+    state = ft.run(state, params, steps, method="naive", device="cpu")
+    rho = naive.density_naive(state.pos, params)
+    return params, [state.pos, state.vel, rho,
+                    physics.eos_pressure(rho, params)]
+
+
+def phase_parity_gridded(torch, ft):
+    """One FluidSim(method="gridded") step on the card against the port's
+    CPU path (the pallas parity's tolerances), and accel_mxu on the card
+    against the CPU within 1e-5."""
+    from gpufluidsimulator_torch.ops import mxu_sweep
+    tol = {"rho": 1e-5, "pos": 1e-6, "vel": 1e-4}
+    for dim, n in ((2, 600), (3, 1200)):
+        params, state = ft.scenes.dam_break(n=n, dim=dim, jitter=0.3,
+                                            seed=11, device="cpu")
+        gpu = ft.FluidSim(params, state, method="gridded")
+        gpu.step(1)
+        cpu = ft.FluidSim(params, state, method="gridded", device="cpu")
+        cpu.step(1)
+        errs = {}
+        for key, a, b in zip(("pos", "vel", "rho"), aligned(gpu.state),
+                             aligned(cpu.state)):
+            errs[key] = float(np.abs(a - b).max()
+                              / max(np.abs(b).max(), 1e-9))
+            check(errs[key] <= tol[key], f"gridded parity {dim}D n={n}: "
+                                         f"{key} rel {errs[key]}")
+        check(int(gpu.state.overflow) == int(cpu.state.overflow) == 0,
+              "gridded parity: overflow")
+        emit({"phase": "parity_gridded", "dim": dim, "n": state.n,
+              "rel_err": errs, "tol": tol})
+    params, host = settled_packed_input(ft, 1100, 5)
+    got = mxu_sweep.accel_mxu(*(t.cuda() for t in host), params)
+    want = mxu_sweep.accel_mxu(*host, params)
+    err, rel = rel_err(got.cpu(), want)
+    check(rel <= 1e-5, f"accel_mxu card vs CPU: rel {rel}")
+    emit({"phase": "parity_accel_mxu", "dim": 3, "n": host[0].shape[0],
+          "max_abs_err": err, "rel_err": rel, "tol": 1e-5})
 
 
 def phase_parity_inc(torch, ft):
@@ -443,6 +508,39 @@ def phase_run(torch, ft, ft_build, scene, kwargs, steps, label):
           "rho_mean": float(rho.mean()), "rho_max": float(rho.max()),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **checks})
     return counts
+
+
+def phase_gridded_run(torch, ft, ft_build):
+    """Config 2 (BASELINE.json configs[1]): the 2D dam break of 65,522
+    particles, 200 steps through FluidSim(method="gridded"), which runs
+    plain PyTorch on the card and launches none of the kernels."""
+    params, state = ft.scenes.dam_break(n=65536, dim=2, device="cuda")
+    n = state.n
+    sim = ft.FluidSim(params, state, method="gridded")
+    sim.step(1)                           # first-touch allocations
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft_build.reset_launches()
+    steps = 200
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    t0.record()
+    sim.step(steps)
+    t1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    counts = dict(ft_build.launches)
+    ms = t0.elapsed_time(t1) / steps
+    checks = check_state(torch, sim.state, params, n, "gridded config 2")
+    check(not any(counts.values()), f"gridded launched kernels: {counts}")
+    rho = sim.state.rho
+    emit({"phase": "run", "scene": "dam_break_2d_65522", "method":
+          sim.method, "particles": n, "steps": steps, "ms_per_step": ms,
+          "particle_steps_per_s": n * 1e3 / ms, "wall_s": wall,
+          "launches": counts, "rho_mean": float(rho.mean()),
+          "rho_max": float(rho.max()),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **checks})
 
 
 def phase_inc_run(torch, ft, ft_build):
@@ -822,6 +920,126 @@ def phase_inc_kernels(torch, ft, state, params):
     return results
 
 
+def support_pairs(torch, f, desc, params) -> float:
+    """Covered pairs of the packed sweep inside the kernel support
+    (r^2 in (1e-16, h^2)): the pairs whose coefficients it computes."""
+    from gpufluidsimulator_torch.ops import mxu_sweep as mx
+    qt, tile, lo, hi = mx._slots(desc)
+    fq = f.reshape(-1, mx.TQ, 8)
+    lane = torch.arange(mx.TC, device=f.device)
+    total = 0
+    for s0 in range(0, qt.numel(), 2048):
+        sl = slice(s0, s0 + 2048)
+        jid = tile[sl, None] * mx.TC + lane
+        rng = (jid >= lo[sl, None]) & (jid < hi[sl, None])
+        d = fq[qt[sl]][:, None, :, :3] - fq[tile[sl]][:, :, None, :3]
+        r2 = (d * d).sum(-1)
+        total += int((rng[:, :, None] & (r2 > 1e-16)
+                      & (r2 < params.h * params.h)).sum())
+    return float(total)
+
+
+def phase_packed_sweep(torch, ft, ft_build, state, params):
+    """The packed-pair sweep on the evolved config-4 state: accel_mxu with
+    the counts zeroed, the kernel against its plain version, the padding
+    accounting, the kernel's time and bound, and the rank-plane
+    accel_planes (plain force) on the same positions, velocities and rho,
+    timed and held particle by particle.  Returns (kernel entry, launches)."""
+    from gpufluidsimulator_torch.ops import grid, mxu_sweep, physics, route
+    from gpufluidsimulator_torch.ops import sph
+    from gpufluidsimulator_torch.ops import planes as pm
+
+    geom = pm.geometry(params)
+    table = pm.build_planes(state.pos, state.vel, state.ids, params, geom)
+    check(bool(table.ok.all()), "packed sweep: binning dropped particles")
+    planes = table.planes
+    occ_q, occ_s = pm.occupancy_bounds(planes, params, geom)
+    rho_p = pm.halo_x(sph.density_planes(planes[:3], occ_q, occ_s, params,
+                                         geom))
+    acc_p = sph.accel_planes(planes, rho_p, occ_q, occ_s, params, geom)
+    per = route.gather(torch.cat([acc_p, rho_p[None]]).contiguous(),
+                       table.slot)
+    # accel_planes' EOS input: rho floored at 1e-3 rest density
+    rho = torch.clamp_min(per[:, 3], 1e-3 * params.rest_density)
+    args = (table.pos_s, table.vel_s, rho, physics.eos_pressure(rho, params))
+    n = state.n
+
+    torch.cuda.synchronize()
+    ft_build.reset_launches()
+    acc = mxu_sweep.accel_mxu(*args, params)
+    torch.cuda.synchronize()
+    counts = dict(ft_build.launches)
+    want = dict.fromkeys(counts, 0)
+    want["sweep_packed"] = 1
+    check(counts == want, f"accel_mxu launches {counts}")
+    # both in slot-sorted order; accel_planes has no gravity either.  The
+    # largest |a| (a close pair) sets the scale: 1e-6 of it still fails a
+    # dropped viscosity term or a dropped neighbour range
+    err_p, rel_p = rel_err(acc, per[:, :3])
+    check(rel_p <= 1e-6, f"accel_mxu vs accel_planes: rel {rel_p}")
+    norm = torch.linalg.vector_norm
+    rms_p = float(norm((acc - per[:, :3]).double()) / norm(per[:, :3]
+                                                           .double()))
+
+    f, cids, _ = mxu_sweep.pack(*args, params)
+    desc = mxu_sweep.build_desc(cids, f.shape[0], params)
+    got = mxu_sweep.sweep_packed(f, desc, params)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want_f = mxu_sweep.sweep_packed_plain(f, desc, params)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    err, rel = rel_err(got, want_f)
+    check(rel <= 1e-5, f"sweep_packed rel err {rel} > 1e-5")
+    emit({"phase": "kernel_check", "kernel": "sweep_packed",
+          "input": "double_dam_break 3D (evolved), packed",
+          "max_abs_err": err, "rel_err": rel, "tol": 1e-5})
+
+    cids_np = cids.cpu().numpy()
+    stats = mxu_sweep.table_stats(cids_np, f.shape[0], params)
+    hist = np.bincount(cids_np, minlength=grid.num_padded_cells(params))
+    ideal = int(sum(hist[cids_np + o].sum()
+                    for o in grid.neighbor_offsets(params)))
+    support = support_pairs(torch, f, desc, params)
+    stats.update(candidate_pair_ideal=ideal, support_pairs=support,
+                 pad_eval_vs_ideal=stats["eval_pairs"] / ideal,
+                 pad_covered_vs_ideal=stats["covered_pairs"] / ideal)
+    emit({"phase": "packed_table", **stats})
+
+    q = f.shape[0] // mxu_sweep.TQ
+    c = dict(bytes=f.numel() * 4 + q * 8 * 4 + f.shape[0] * 3 * 4,
+             flops=PACKED_PAIR_FLOPS * ideal + PACKED_SUPPORT_FLOPS * support)
+    r = dict(max_abs_err=err,
+             ms=time_ms(torch, lambda: mxu_sweep.sweep_packed(f, desc,
+                                                              params), REPS),
+             plain_ms=plain_ms, library_ms=None, **bounds(c))
+    emit({"phase": "kernel_time", "kernel": "sweep_packed",
+          "shape": f"double_dam_break n=1e6 3D ({n:,} particles), evolved, "
+                   f"packed: Npad {f.shape[0]}, Q {q}",
+          "candidate_pairs": ideal, "covered_pairs": stats["covered_pairs"],
+          "support_pairs": support,
+          "gflops_useful": c["flops"] / r["ms"] / 1e6,
+          "gflops_issued": (PACKED_PAIR_FLOPS * stats["covered_pairs"]
+                            + PACKED_SUPPORT_FLOPS * support) / r["ms"] / 1e6,
+          **{k: r[k] for k in TIME_KEYS}})
+    emit({"phase": "packed_vs_planes", "particles": n,
+          "accel_mxu_ms": time_ms(torch, lambda: mxu_sweep.accel_mxu(
+              *args, params), 5),
+          "pack_ms": time_ms(torch, lambda: mxu_sweep.pack(*args, params),
+                             5),
+          "build_desc_ms": time_ms(torch, lambda: mxu_sweep.build_desc(
+              cids, f.shape[0], params), 5),
+          "sweep_packed_ms": r["ms"],
+          "accel_planes_ms": time_ms(torch, lambda: sph.accel_planes(
+              planes, rho_p, occ_q, occ_s, params, geom), REPS),
+          "max_abs_err": err_p, "rel_err": rel_p, "tol": 1e-6,
+          "rms_rel_err": rms_p,
+          "gravity": "in neither"})
+    return r, counts
+
+
 # the continuity forms and switches the on-card checks cover
 CONT_CASES = {"rate": dict(cont_form="rate"),
               "relax": dict(cont_form="relax"),
@@ -895,6 +1113,8 @@ SOURCES = {
                         "(continuity)"),
     "consolidate_rho": ("gpufluidsimulator_torch/csrc/consolidate.cu",
                         "gpufluidsimulator_tpu/ops/inc.py:726 (has_rho)"),
+    "sweep_packed": ("gpufluidsimulator_torch/csrc/packed_sweep.cu",
+                     "gpufluidsimulator_tpu/ops/mxu_sweep.py:174"),
 }
 # kernels whose launches come from the continuity tier's early run
 CONT = ("force_step_cont", "consolidate_rho")
@@ -919,13 +1139,17 @@ def main() -> int:
     phase_parity(torch, ft)
     phase_parity_inc(torch, ft)
     phase_parity_inc_cont(torch, ft)
+    phase_parity_gridded(torch, ft)
     counts = phase_run(torch, ft, ft_build, ft.scenes.dam_break,
                        dict(n=262144, dim=3), 200, "dam_break_3d_260850")
     phase_run(torch, ft, ft_build, ft.scenes.double_dam_break,
               dict(n=1_000_000, dim=3), 20, "double_dam_break_3d_1197770")
+    phase_gridded_run(torch, ft, ft_build)
     state, params, counts_inc, counts_cont = phase_inc_run(torch, ft,
                                                            ft_build)
     results_inc = phase_inc_kernels(torch, ft, state, params)
+    packed, counts_packed = phase_packed_sweep(torch, ft, ft_build, state,
+                                               params)
     del state
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -933,7 +1157,10 @@ def main() -> int:
     for name, (src, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces}
-        if name in SLICE1:
+        if name == "sweep_packed":
+            entry.update(launches=counts_packed[name],
+                         **{k: packed[k] for k in keys})
+        elif name in SLICE1:
             r = results[name]
             entry.update(launches=counts[name], **{k: r[k] for k in keys})
             entry["launches_pallas_inc"] = counts_inc[name]

@@ -53,13 +53,14 @@ SIGNATURES = {
                            _P, _I, _I, _I, _I, _P, _P],
     "fk_consolidate_rho": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P],
+    "fk_sweep_packed": [_P, _P, _P, _I, _F, _F, _F, _P],
 }
 
 # kernel name -> launches since the last reset (a plain count per wrapper;
 # chip_smoke.py zeroes it before a run and reads it after)
 launches = {"occ_rowmax": 0, "place": 0, "density": 0, "force": 0,
             "gather": 0, "force_step": 0, "compact": 0, "consolidate": 0,
-            "force_step_cont": 0, "consolidate_rho": 0}
+            "force_step_cont": 0, "consolidate_rho": 0, "sweep_packed": 0}
 
 # the last build's compiler output (register / spill report of -Xptxas -v)
 build_log = {"text": "", "seconds": 0.0, "path": ""}

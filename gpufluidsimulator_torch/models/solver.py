@@ -3,11 +3,13 @@
 Counterpart: ``gpufluidsimulator_tpu/models/solver.py``.  Method names match
 the reference for API parity; ``"pallas"`` here means the rank-plane
 kernel tier (hand-written CUDA kernels on the card).  Ported: ``naive``,
-``pallas``, ``pallas_inc`` (the incremental path, ``ops/inc.py``, which
-``run``/``rollout`` keep planes-resident for a whole call) and
-``pallas_inc_cont`` (its continuity-density tier).  The reference's other
-methods raise ``NotImplementedError`` naming the ROADMAP item that ports
-them; ``auto`` resolves exactly as the reference's does.
+``gridded`` (the uniform-grid cell table, ``ops/gridded.py``, plain
+PyTorch as the reference's is plain XLA), ``pallas``, ``pallas_inc`` (the
+incremental path, ``ops/inc.py``, which ``run``/``rollout`` keep
+planes-resident for a whole call) and ``pallas_inc_cont`` (its
+continuity-density tier).  ``native`` raises ``NotImplementedError``
+naming the ROADMAP item that ports it; ``auto`` resolves exactly as the
+reference's does.
 
 Every entry point takes ``device`` (default: the card; see
 ``state.resolve_device``) and moves the state there.
@@ -24,7 +26,6 @@ from .state import DeviceLike, State, resolve_device
 
 # method -> ROADMAP.md queue-1 item that ports it
 UNPORTED = {
-    "gridded": "queue 1, item 9 (gridded tier)",
     "native": "queue 1, item 6 (FluidSim method='native')",
 }
 
@@ -34,6 +35,14 @@ def _step_naive(state: State, params: SimParams) -> State:
     return State(pos=pos, vel=vel, rho=rho, pres=pres, ids=state.ids,
                  overflow=torch.zeros((), dtype=torch.int32,
                                       device=pos.device))
+
+
+def _step_gridded(state: State, params: SimParams) -> State:
+    from ..ops import gridded
+    pos, vel, rho, pres, overflow = gridded.step_gridded(
+        state.pos, state.vel, params)
+    return State(pos=pos, vel=vel, rho=rho, pres=pres, ids=state.ids,
+                 overflow=overflow)
 
 
 def _step_pallas(state: State, params: SimParams) -> State:
@@ -61,7 +70,8 @@ def _step_pallas_inc_cont(state: State, params: SimParams) -> State:
     return inc.run_inc(state, params, 1, continuity=True)
 
 
-METHODS = {"naive": _step_naive, "pallas": _step_pallas,
+METHODS = {"naive": _step_naive, "gridded": _step_gridded,
+           "pallas": _step_pallas,
            "pallas_inc": _step_pallas_inc,
            "pallas_inc_cont": _step_pallas_inc_cont}
 INC_METHODS = ("pallas_inc", "pallas_inc_cont")
@@ -99,7 +109,7 @@ def _run_method(method: str, n_steps: int, n: int) -> str:
 
 def step(state: State, params: SimParams, method: str = "auto",
          device: DeviceLike = None) -> State:
-    """One SPH step. method: 'naive' | 'pallas' | 'pallas_inc' |
+    """One SPH step. method: 'naive' | 'gridded' | 'pallas' | 'pallas_inc' |
     'pallas_inc_cont' | 'auto'.  'pallas_inc_cont' re-seeds its carried
     density on every call (see ``_step_pallas_inc_cont``)."""
     state = state.to(resolve_device(device))

@@ -49,7 +49,7 @@ def accel_naive(pos, vel, rho, pres, params: SimParams) -> torch.Tensor:
     dvel = vel[None, :, :] - vel[:, None, :]          # v_j - v_i
     a_visc = torch.sum(coef_v[..., None] * dvel, dim=1)
 
-    grav = torch.tensor(params.gravity, dtype=pos.dtype, device=pos.device)
+    grav = physics.constant(params.gravity, pos)
     return a_pres + a_visc + grav
 
 

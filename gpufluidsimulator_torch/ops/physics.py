@@ -7,9 +7,25 @@ operation order, on float32 tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..models.params import SimParams
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, like: torch.Tensor) -> torch.Tensor:
+    """A small constant vector (gravity, box bounds, an obstacle's centre)
+    on ``like``'s device and dtype, made once per device: a tensor built
+    from a tuple on every step is a copy from pageable host memory, which
+    waits for the card's stream.  Read-only: callers never write to it."""
+    return _constant(tuple(float(v) for v in values), like.dtype,
+                     like.device)
 
 
 def eos_pressure(rho: torch.Tensor, params: SimParams) -> torch.Tensor:
@@ -36,14 +52,14 @@ def _obstacle_sdf_normal(pos: torch.Tensor, obstacle, dim: int):
     kind = obstacle[0]
     if kind == "sphere":
         _, center, radius = obstacle
-        c = torch.tensor(center, dtype=pos.dtype, device=pos.device)
+        c = constant(center, pos)
         d = pos - c
         r = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-20)
         return r - radius, d / r[..., None]
     if kind == "box":
         _, center, half = obstacle
-        c = torch.tensor(center, dtype=pos.dtype, device=pos.device)
-        hx = torch.tensor(half, dtype=pos.dtype, device=pos.device)
+        c = constant(center, pos)
+        hx = constant(half, pos)
         q = torch.abs(pos - c) - hx                      # per-axis distance
         outside = torch.clamp_min(q, 0.0)
         sdf_out = torch.sqrt(torch.sum(outside * outside, dim=-1) + 1e-20)
@@ -66,8 +82,8 @@ def collide(pos: torch.Tensor, vel: torch.Tensor, params: SimParams):
     """Walls: clamp position to the box and reflect the normal velocity,
     damped by ``restitution``.  Obstacles: project out along the SDF normal
     and reflect the inward normal velocity."""
-    lo = torch.tensor(params.bounds_min, dtype=pos.dtype, device=pos.device)
-    hi = torch.tensor(params.bounds_max, dtype=pos.dtype, device=pos.device)
+    lo = constant(params.bounds_min, pos)
+    hi = constant(params.bounds_max, pos)
     damp = -params.restitution
 
     hit = (pos < lo) | (pos > hi)

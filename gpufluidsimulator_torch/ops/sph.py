@@ -535,8 +535,8 @@ def step_pallas(pos, vel, ids, params: SimParams):
     out = route.gather(stack, table.slot)
     ok = table.ok
     out = torch.where(ok[:, None], out, 0.0)
-    grav = torch.tensor(params.gravity + (0.0,) * (3 - params.dim),
-                        dtype=torch.float32, device=pos.device)
+    grav = physics.constant(params.gravity + (0.0,) * (3 - params.dim),
+                            out)
     acc = (out[:, :3] + grav)[:, :params.dim]   # dropped rows: gravity only
     if params.diagnostics:
         rho_d = torch.clamp_min(out[:, 3], 1e-3 * params.rest_density)

@@ -5,6 +5,8 @@
         --scene double_dam_break --n 1000000 --warm 100
     python3 scripts/torch_profile_step.py --method pallas_inc_cont \
         --scene double_dam_break --n 1000000 --warm 100
+    python3 scripts/torch_profile_step.py --method gridded --dim 2 \
+        --n 65536 --warm 1
 
 ``--method pallas`` (default) runs the phases of the full-rebuild
 ``ops.sph.step_pallas`` one by one with CUDA events between them (binning
@@ -15,7 +17,9 @@ mover sort + start table, consolidate), after ``--warm`` full-rebuild
 steps as bench.py warms its early operating point; ``--method
 pallas_inc_cont`` those of its continuity tier (the density phase then
 runs only at a re-sum age: the carried rho is seeded by one sweep and the
-age starts at 1, as bench.py times it).  All are averaged over
+age starts at 1, as bench.py times it); ``--method gridded`` those of
+``ops.gridded.step_gridded`` (cell table, density, EOS, force, gather +
+integrate) after ``--warm`` gridded steps.  All are averaged over
 ``--steps`` steps and followed by a ``torch.profiler`` trace of whole
 steps, summed by kernel name, with the device busy share of that window.
 Prints JSON lines; needs a CUDA card.  Imports nothing of JAX.
@@ -42,7 +46,8 @@ def main() -> int:
     ap.add_argument("--scene", default="dam_break",
                     choices=["dam_break", "double_dam_break"])
     ap.add_argument("--method", default="pallas",
-                    choices=["pallas", "pallas_inc", "pallas_inc_cont"])
+                    choices=["pallas", "pallas_inc", "pallas_inc_cont",
+                             "gridded"])
     ap.add_argument("--warm", type=int, default=3)
     args = ap.parse_args()
 
@@ -57,19 +62,25 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     params, state = ft.scenes.SCENES[args.scene](n=args.n, dim=args.dim)
-    inc_path = args.method != "pallas"
+    inc_path = args.method.startswith("pallas_inc")
     if inc_path:
         params = params.replace(diagnostics=False)     # as bench.py:59
-    sim = ft.FluidSim(params, state, method="pallas")
+    gridded = args.method == "gridded"
+    sim = ft.FluidSim(params, state,
+                      method="gridded" if gridded else "pallas")
     sim.step(args.warm)
     torch.cuda.synchronize()
-    geom = pm.geometry(params)
-    if inc_path:
+    if gridded:
+        phases = _gridded_phases(torch, params, sim.state, args.steps)
+        step = sim.step
+    elif inc_path:
+        geom = pm.geometry(params)
         phases, step = _inc_phases(torch, params, geom, sim.state,
                                    args.steps,
                                    args.method == "pallas_inc_cont")
     else:
-        phases = _full_phases(torch, params, geom, sim.state, args.steps)
+        phases = _full_phases(torch, params, pm.geometry(params),
+                              sim.state, args.steps)
         step = sim.step
     print(json.dumps({"phase": "step_breakdown_ms", "card": card,
                       "method": args.method, "scene": args.scene,
@@ -151,6 +162,32 @@ def _inc_phases(torch, params, geom, state, steps, continuity):
     return phases, run
 
 
+def _gridded_phases(torch, params, st, steps):
+    from gpufluidsimulator_torch.ops import grid, gridded, physics
+
+    names = ["cell_table", "density", "eos", "force", "gather_integrate"]
+    totals = dict.fromkeys(names, 0.0)
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        table = grid.build_cell_table(st.pos, st.vel, params)
+        ev[1].record()
+        rho = gridded.slot_density(table, params)
+        ev[2].record()
+        pres = physics.eos_pressure(rho, params)
+        ev[3].record()
+        acc = gridded.accel_dense(table, rho, pres, params)
+        ev[4].record()
+        pos, vel, *_ = gridded.finish(st.pos, st.vel, table, rho, pres, acc,
+                                      params)
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            totals[name] += ev[i].elapsed_time(ev[i + 1])
+        st = st._replace(pos=pos, vel=vel)
+    return {k: v / steps for k, v in totals.items()}
+
+
 def _full_phases(torch, params, geom, st, steps):
     from gpufluidsimulator_torch.ops import physics, route, sph
     from gpufluidsimulator_torch.ops import planes as pm
@@ -175,7 +212,7 @@ def _full_phases(torch, params, geom, st, steps):
         out = route.gather(torch.cat([acc, rho[None]]), table.slot)
         ev[6].record()
         out = torch.where(table.ok[:, None], out, 0.0)
-        grav = torch.tensor(params.gravity, device=out.device)
+        grav = physics.constant(params.gravity, out)
         pos, vel = physics.integrate(table.pos_s, table.vel_s,
                                      out[:, :params.dim] + grav, params)
         ev[7].record()

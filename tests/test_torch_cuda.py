@@ -9,14 +9,15 @@ Imports nothing of JAX, so it runs on a machine without it:
 Small scenes that reach the branches the config-3 and config-4 checks in
 ``chip_smoke.py`` do not: 2D, several x tiles (halo lanes), the Tait EOS,
 a cell capacity of 16 (the kernels' second register width), particles
-inside both obstacles and through the walls, forced drops, and every form
-and switch of the continuity step.
+inside both obstacles and through the walls, forced drops, every form
+and switch of the continuity step, and the packed-pair sweep with a
+sentinel tail and a query tile whose three candidate ranges are empty.
 Tolerances as in ``chip_smoke.py``: occupancy, placement, gather,
-compaction and consolidation exact; density relative 1e-5 and force 1e-4
-(summation order and ``rsqrtf``); the fused force steps relative 1e-6 on
-positions and 1e-4 on velocities, the continuity step's rho relative
-1e-5, with mover flags equal except on slots within 1e-5 of a cell face
-(FMA contraction moves a position by a rounding).
+compaction and consolidation exact; density and the packed sweep relative
+1e-5 and force 1e-4 (summation order and ``rsqrtf``); the fused force
+steps relative 1e-6 on positions and 1e-4 on velocities, the continuity
+step's rho relative 1e-5, with mover flags equal except on slots within
+1e-5 of a cell face (FMA contraction moves a position by a rounding).
 """
 
 import numpy as np
@@ -26,7 +27,8 @@ import torch
 import gpufluidsimulator_torch as ft
 from gpufluidsimulator_torch import _build
 from gpufluidsimulator_torch.ops import planes as pm
-from gpufluidsimulator_torch.ops import inc, route, sph
+from gpufluidsimulator_torch.ops import inc, mxu_sweep, naive, physics, route
+from gpufluidsimulator_torch.ops import sph
 
 pytestmark = pytest.mark.cuda
 
@@ -450,3 +452,67 @@ def test_cont_step_planes_never_waits_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert s.age == 2 and torch.isfinite(s.rhop).all()
+
+
+def _settled_packed(n, steps):
+    """tests/test_torch_mxu.py's input: a 3D dam break settled by a few
+    all-pairs steps on the CPU, with its summation density and pressure."""
+    params, state = ft.scenes.dam_break(n=n, dim=3, jitter=0.3, seed=3,
+                                        device="cpu")
+    state = ft.run(state, params, steps, method="naive", device="cpu")
+    rho = naive.density_naive(state.pos, params)
+    pres = physics.eos_pressure(rho, params)
+    return params, [state.pos, state.vel, rho, pres]
+
+
+@pytest.mark.parametrize("request_n", [1100, 777])
+def test_sweep_packed_matches_plain(cuda, request_n):
+    """The packed sweep's kernel against its plain version on the same
+    packed rows (relative 1e-5: summation order and rsqrtf), on settled
+    scenes of 1,080 and 715 particles (sentinel tails of 72 and 53 rows);
+    the descriptor built on the card equals the CPU's; accel_mxu on the
+    card against the port's CPU path."""
+    params, host = _settled_packed(request_n, 5 if request_n == 1100 else 3)
+    n = host[0].shape[0]
+    args = [t.to(cuda) for t in host]
+    f, cids, order = mxu_sweep.pack(*args, params)
+    desc = mxu_sweep.build_desc(cids, f.shape[0], params)
+    assert torch.equal(desc.cpu(), mxu_sweep.build_desc(cids.cpu(),
+                                                        f.shape[0], params))
+    before = dict(_build.launches)
+    got = mxu_sweep.sweep_packed(f, desc, params)
+    want = mxu_sweep.sweep_packed_plain(f, desc, params)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    assert (got[n:] == 0).all()
+    want_counts = dict.fromkeys(before, 0)
+    want_counts["sweep_packed"] = 1
+    assert {k: _build.launches[k] - before[k] for k in before} == want_counts
+    acc = mxu_sweep.accel_mxu(*args, params)
+    assert _rel(acc, mxu_sweep.accel_mxu(*host, params)) <= 1e-5
+
+
+def test_sweep_packed_empty_tile_and_refusals(cuda):
+    """A query tile whose three ranges are empty gets 0 in both versions
+    and leaves the other tiles' results bit for bit; the wrapper refuses
+    what the kernel does not take."""
+    params, host = _settled_packed(777, 3)
+    f, cids, _ = mxu_sweep.pack(*(t.to(cuda) for t in host), params)
+    desc = mxu_sweep.build_desc(cids, f.shape[0], params)
+    base = mxu_sweep.sweep_packed(f, desc, params)
+    cut = desc.clone()
+    cut[2, :7] = 0
+    got = mxu_sweep.sweep_packed(f, cut, params)
+    want = mxu_sweep.sweep_packed_plain(f, cut, params)
+    tile = slice(2 * mxu_sweep.TQ, 3 * mxu_sweep.TQ)
+    assert (got[tile] == 0).all() and (want[tile] == 0).all()
+    rest = torch.ones(f.shape[0], dtype=torch.bool, device=cuda)
+    rest[tile] = False
+    assert torch.equal(got[rest], base[rest])
+    assert _rel(got, want) <= 1e-5
+    with pytest.raises(ValueError, match="float32"):
+        mxu_sweep.sweep_packed(f.double(), desc, params)
+    with pytest.raises(ValueError, match="multiple"):
+        mxu_sweep.sweep_packed(f[:-1], desc, params)
+    with pytest.raises(ValueError, match="shape"):
+        mxu_sweep.sweep_packed(f, desc[:-1], params)

@@ -370,7 +370,7 @@ def test_guards(monkeypatch):
     s = tinc.to_planes(ts.pos, ts.vel, ts.ids, tp, geom)
     assert s.rhop is None and s.age is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.run(ts, tp, 2, method="gridded", device="cpu")
+        tfs.run(ts, tp, 2, method="native", device="cpu")
     monkeypatch.setattr(tinc, "MAX_F32_ID", ts.n - 1)
     with pytest.raises(ValueError, match="float32"):
         tinc.to_planes(ts.pos, ts.vel, ts.ids, tp, geom)

@@ -180,9 +180,9 @@ def test_physics_matches_jax():
 
 
 def test_methods_and_auto_resolution():
-    for m in ("gridded", "native"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsolver.resolve_method(m, 100)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsolver.resolve_method("native", 100)
+    assert tsolver.resolve_method("gridded", 100) == "gridded"
     assert tsolver.resolve_method("pallas_inc", 100) == "pallas_inc"
     assert tsolver.resolve_method("pallas_inc_cont", 100) \
         == "pallas_inc_cont"
