@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -40,17 +41,18 @@ SIGNATURES = {
     "fk_place": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
     "fk_density": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _F, _F,
                    _P],
-    "fk_force": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
-                 _F, _F, _F, _F, _I, _F, _F, _F, _F, _I, _P],
+    "fk_force": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _L, _F, _F, _F, _F, _I, _F, _F, _F, _F, _I, _P],
     "fk_gather": [_P, _P, _P, _I, _I, _L, _P],
-    "fk_force_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
-                      _F, _F, _F, _F, _I, _F, _F, _F, _F, _I, _P, _I, _P],
-    "fk_compact": [_P, _I, _P, _L, _P, _I, _P, _I, _P],
+    "fk_force_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _L, _F, _F, _F, _F, _I, _F, _F, _F, _F, _I,
+                      _P, _I, _P],
+    "fk_compact": [_P, _I, _P, _L, _P, _I, _P, _I, _P, _P],
     "fk_consolidate": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _I, _I, _L, _I, _P],
-    "fk_force_step_cont": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _L, _F, _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                           _P, _I, _I, _I, _I, _P, _P],
+    "fk_force_step_cont": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _L, _F, _F, _F, _F, _I, _F, _F,
+                           _F, _F, _I, _P, _I, _I, _I, _I, _P, _P],
     "fk_consolidate_rho": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P],
     "fk_sweep_packed": [_P, _P, _P, _I, _F, _F, _F, _P],
@@ -62,8 +64,31 @@ launches = {"occ_rowmax": 0, "place": 0, "density": 0, "force": 0,
             "gather": 0, "force_step": 0, "compact": 0, "consolidate": 0,
             "force_step_cont": 0, "consolidate_rho": 0, "sweep_packed": 0}
 
-# the last build's compiler output (register / spill report of -Xptxas -v)
+# the compiler output of the library in use (the register / spill report of
+# -Xptxas -v), kept beside it as <library>.log
 build_log = {"text": "", "seconds": 0.0, "path": ""}
+
+
+def ptxas_report(text: str) -> dict:
+    """-Xptxas -v's report, per kernel (mangled name): ``registers``,
+    ``spills`` (spill stores + loads, bytes) and ``static_smem`` (bytes)."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spills": 0, "static_smem": 0}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                out[name]["spills"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", ln)
+                out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def reset_launches() -> None:
@@ -89,8 +114,11 @@ def build() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libfluidkernels-{h.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
         build_log["path"] = str(lib_path)
+        if log_path.exists():
+            build_log["text"] = log_path.read_text()
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -121,8 +149,10 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    text = "\n".join(log)
+    log_path.write_text(text)
     os.replace(tmp, lib_path)
-    build_log.update(text="\n".join(log), path=str(lib_path),
+    build_log.update(text=text, path=str(lib_path),
                      seconds=time.perf_counter() - t0)
     return lib_path
 
@@ -136,6 +166,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fk_error_string.argtypes = [ctypes.c_int]
     lib.fk_error_string.restype = ctypes.c_char_p
+    lib.fk_force_smem.argtypes = [ctypes.c_int]
+    lib.fk_force_smem.restype = ctypes.c_int
     return lib
 
 

@@ -1,5 +1,5 @@
-// Kernel 4: pressure gradient + viscosity Laplacian with the EOS fused, in
-// two modes that share one pair loop:
+// Kernel 4: pressure gradient + viscosity Laplacian with the EOS fused,
+// one CUDA template (force_kernel) in three modes that share one pair loop:
 //   * plain (fk_force): acceleration out, gravity excluded.  Replaces
 //     gpufluidsimulator_tpu/ops/pallas_sph.py:_force_kernel with
 //     fuse_integrate = emit_movers = continuity = False.
@@ -9,28 +9,77 @@
 //   * continuity step (fk_force_step_cont, kernel 4c): the fused step with
 //     continuity = True — see the note above FkCont below.
 //
-// Pair loop (both modes).  Same arithmetic and
-// constant folds as the TPU kernel (pallas_sph.py:264-271, 387-398,
-// 419-488), for every valid rank of an interior cell:
+// Pair loop (every mode).  Same arithmetic and constant folds as the TPU
+// kernel (pallas_sph.py:264-271, 387-398, 419-488), for every valid rank of
+// an interior cell:
 //   rho_s  = valid ? max(rho, 1e-3 rho0) : rho0            (both sides)
 //   pterm  = m_spiky * p(rho_s) / rho_s^2,  ir = m_visc_sqrt / rho_s
 //   inv_r  = rsqrt(max(r^2, 1e-16)),  r = r^2 inv_r,  hr = max(h - r, 0)
 //   coef_p = (pterm_q + pterm_c) hr^2 inv_r,  coef_v = hr (ir_q ir_c)
 //   a     += coef_p d + coef_v v_c,  sv += coef_v;   a -= v_q sv at the end
-// over the 3^d neighbour cells' valid ranks (the self pair cancels: d = 0
-// and its viscosity term is removed by the -v_q sv finish).  Every other
-// slot gets 0 (the TPU kernel leaves it undefined).
+// over the 3^d neighbour cells' valid ranks, in the order dz, dy, dx, rank
+// (the self pair cancels: d = 0 and its viscosity term is removed by the
+// -v_q sv finish).  Every other slot gets 0, or the sentinel on the fused
+// step's position planes (the TPU kernel leaves it undefined).
 //
-// Bound on the H100: writing the 3 acceleration planes (3 * K * cells * 4 B,
-// 116 MB at the 260,850-particle 3D dam break) plus reading the inputs at
-// the valid slots (x up to each cell's first sentinel rank) outweighs the
-// pair arithmetic (~32 flops for each of ~1.5e7 pairs) — bytes.  Design as in
-// density.cu: one thread per cell, its valid query ranks in registers,
-// each candidate (with its EOS terms) loaded and computed once and paired
-// with all of them; a warp reads 32 neighbouring lanes of one row.
+// Bound on the H100: bytes.  Every slot of the 3 (plain), 7 (fused) or 8
+// (continuity) output planes is written once: 7 * K * cells * 4 B = 411 MB
+// at the 1,197,770-particle double dam break (0.123 ms at 3.35 TB/s), well
+// above the pair arithmetic (32 to 49 float32 operations for each of 6.9e7
+// candidate pairs, 0.03 to 0.05 ms at 67 TFLOP/s).
+//
+// The first design (one thread per cell, its valid query ranks in KMAX
+// register slots, the 27 neighbour cells walked serially) ran 14 to 18x
+// this bound (force_step 1.87198 ms, force_step_cont 2.80023 ms on the
+// evolved double dam break, H100 80GB HBM3 at 700 W): most threads held no
+// query, the pair body was issued for all KMAX slots, each candidate's EOS
+// and 7 channel loads were redone by each of the 27 cells that read it, a
+// warp ran as long as its fullest cell, and 160 registers (continuity)
+// left 12 warps per SM.
+//
+// This design: a block of 256 threads owns a tile of 4 rows x 32 lanes of
+// one (z, x tile) plane, inside one 8-row block.  Warp w counts the valid
+// ranks of row w's lanes (bounded by the block's occ_q, stopping at the
+// first sentinel) and lays that row's queries out rank-major in shared
+// memory, so consecutive threads take neighbouring lanes of one rank and
+// the stores stay coalesced along the lanes; every slot that holds no
+// query is filled by a coalesced sweep.  A tile whose occ_q is 0, or that
+// holds no interior row, only fills.  For each neighbour plane dz (skipped
+// when its occ_s is 0) the block stages the 6 rows x 34 lanes around the
+// tile into shared memory, one thread per slot and all loads in flight at
+// once: ranks below occ_s, 8 a pass (K = 16 takes two), as two float4 per
+// slot, (x, y, z, pterm) and (vx, vy, vz, ir), rank-major so a warp reads
+// neighbouring cells without bank conflicts, with the EOS folded once at
+// staging; a cell's count stops at its first sentinel rank.  Each thread
+// then takes one query (256 at a time) and walks its 3 x 3 staged cells,
+// with 4 accumulators (5 with the continuity sum) and its query's 8
+// values.  The registers are capped at 64, so 4 blocks (32 warps) share an
+// SM with their 4 x 52 KB of staging.  Of the variants timed (one row of
+// 128 threads, two rows, 4 ranks a pass, 8 rows of 512 threads, no register
+// cap), this tile was the fastest; the register cap mattered most.
+//
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700.00 W): force_step 0.717
+// ms and force_step_cont 0.808 ms on the evolved double dam break, force
+// 0.169 ms at the 260,850-particle dam break; 5.3x its bytes bound for
+// force_step.  The pair arithmetic, the staging and the fill of the empty
+// slots share the time; the device stays latency-bound (see PERF.md).
+#include <atomic>
+
 #include "common.cuh"
 
 #define FK_MAX_OBS 4
+#define FK_THREADS 256          // threads a block; queries 256 at a time
+#define FK_MIN_BLOCKS 4         // blocks an SM: caps registers at 64
+#define FK_STAGE_RANKS 8        // ranks of a staged cell a pass holds
+#define FK_TILE_ROWS 4          // rows of a block's tile (divides 8 and py)
+#define FK_TILE_LANES 32        // lanes of each row that a block owns
+#define FK_TILES_PER_ROW (FK_LANES / FK_TILE_LANES)
+#define FK_STAGE_LANES (FK_TILE_LANES + 2)
+#define FK_STAGE_CELLS ((FK_TILE_ROWS + 2) * FK_STAGE_LANES)  // a dz plane
+static_assert(FK_THREADS % 32 == 0 && FK_THREADS / 32 >= FK_TILE_ROWS,
+              "a warp counts each row of the tile");
+static_assert(FK_ROWS_PER_BLOCK % FK_TILE_ROWS == 0,
+              "a tile lies in one 8-row block");
 
 struct FkEos {
     float rho0, rho_floor;     // rest density, 1e-3 * rest density
@@ -190,7 +239,7 @@ __device__ __forceinline__ int fk_cell_of(float x, float base, float inv,
 // once, 7 * K * cells * 4 B = 411 MB at the 1,197,770-particle double dam
 // break, plus the 7 inputs read at the valid slots only (0.135 ms in all) —
 // bytes, well above the pair arithmetic.  Design: the epilogue runs in the
-// registers that already hold the query ranks, so the acceleration never
+// registers of the thread that holds the query, so the acceleration never
 // touches memory; every slot is written, so nothing is left undefined.
 template <int DIM>
 __device__ __forceinline__ void force_step_epilogue(
@@ -224,14 +273,59 @@ __device__ __forceinline__ void force_step_epilogue(
     flag[s] = moved ? 1.0f : 0.0f;
 }
 
+// The occupancy bounds of sph.accel_planes, read through their strides (in
+// elements): occ_q (nz|1, n_bx, n_by) bounds a block's query ranks and
+// tells an empty block; occ_s (..., 3) bounds the ranks staged from the
+// planes z-1, z, z+1 around it.
+struct FkOcc {
+    const int* q;
+    const int* s;
+    long long q0, q1, q2;
+    long long s0, s1, s2, s3;
+};
+
+// Every output slot of a slot that holds no query: 0, or on the fused
+// step the sentinel position, velocity 0, flag 0 (and rho 0).
+template <bool FUSE, int CONT>
+__device__ __forceinline__ void fk_fill(float* out, float* flag,
+                                        float* rho_out, long long s,
+                                        long long ch) {
+    if constexpr (FUSE) {
+        out[s] = FK_SENTINEL;
+        out[ch + s] = FK_SENTINEL;
+        out[2 * ch + s] = FK_SENTINEL;
+        out[3 * ch + s] = 0.0f;
+        out[4 * ch + s] = 0.0f;
+        out[5 * ch + s] = 0.0f;
+        flag[s] = 0.0f;
+        if constexpr (CONT != FK_CONT_NONE) rho_out[s] = 0.0f;
+    } else {
+        out[s] = 0.0f;
+        out[ch + s] = 0.0f;
+        out[2 * ch + s] = 0.0f;
+    }
+}
+
+// One block per tile of FK_TILE_ROWS rows x 32 lanes (see the note at the
+// top); the query, staging and pair loops are all bounded by the tile's
+// occ_q / occ_s and its cells' first sentinel ranks.  Dynamic shared
+// memory: 2 * SR * FK_STAGE_CELLS float4, the staged (x, y, z, pterm) and
+// (vx, vy, vz, ir) of one dz plane's pass of SR ranks, rank-major.
 template <int KMAX, int DIM, bool FUSE, int CONT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(FK_THREADS, FK_MIN_BLOCKS)
 force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
-             float* __restrict__ acc_out, float* __restrict__ flag_out,
-             float* __restrict__ rho_out, FkGeom g, float h, FkEos e,
-             FkStep st, FkCont ct) {
-    const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (c >= g.cells) return;
+             FkOcc occ, float* __restrict__ acc_out,
+             float* __restrict__ flag_out, float* __restrict__ rho_out,
+             FkGeom g, float h, FkEos e, FkStep st, FkCont ct) {
+    constexpr int SR = KMAX < FK_STAGE_RANKS ? KMAX : FK_STAGE_RANKS;
+    extern __shared__ float4 fk_stage[];
+    float4* s_a = fk_stage;
+    float4* s_b = fk_stage + SR * FK_STAGE_CELLS;
+    __shared__ int s_cnt[FK_STAGE_CELLS];
+    __shared__ int s_n[FK_TILE_ROWS][FK_TILE_LANES];
+    __shared__ unsigned short s_q[FK_TILE_ROWS][KMAX * FK_TILE_LANES];
+    __shared__ int s_nrow[FK_TILE_ROWS];
+
     const long long cells = g.cells;
     const int k = g.k;
     const long long ch = (long long)k * cells;     // channel stride
@@ -241,206 +335,326 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
     const float* VX = fields + 3 * ch;
     const float* VY = fields + 4 * ch;
     const float* VZ = fields + 5 * ch;
+    const int tid = threadIdx.x;
 
-    float qx[KMAX], qy[KMAX], qz[KMAX], qvx[KMAX], qvy[KMAX], qvz[KMAX];
-    float qp[KMAX], qir[KMAX];
-    float ax[KMAX], ay[KMAX], az[KMAX], sv[KMAX];
-    float sr[KMAX], qdel[KMAX];        // continuity only (else dead)
-    int nq = 0;
-    const bool interior = fk_interior(c, g);
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q) {
-        ax[q] = ay[q] = az[q] = sv[q] = sr[q] = qdel[q] = 0.0f;
-        qx[q] = qy[q] = qz[q] = qvx[q] = qvy[q] = qvz[q] = 0.0f;
-        qp[q] = qir[q] = 0.0f;
-        if (interior && q < k && q == nq) {
-            const long long s = (long long)q * cells + c;
-            const float xv = X[s];
-            if (xv < FK_HALF_SENTINEL) {
-                qx[q] = xv;
-                qy[q] = Y[s];
-                qvx[q] = VX[s];
-                qvy[q] = VY[s];
-                if (DIM == 3) {
-                    qz[q] = Z[s];
-                    qvz[q] = VZ[s];
-                }
-                const float rq = rho[s];
-                fk_eos_terms(rq, e, &qp[q], &qir[q]);
-                if (CONT == FK_CONT_DELTA) qdel[q] = rq * ct.kappa_over_mv;
-                nq = q + 1;
-            }
-        }
+    // the tile: rows row0 .. row0 + FK_TILE_ROWS - 1 (y0 ..), all in one
+    // 8-row block, lanes lane0 .. lane0 + 31
+    const long long row0 =
+        (long long)(blockIdx.x / FK_TILES_PER_ROW) * FK_TILE_ROWS;
+    const int lane0 = (int)(blockIdx.x % FK_TILES_PER_ROW) * FK_TILE_LANES;
+    const long long base = row0 * FK_LANES + lane0;  // the tile's first cell
+    const int y0 = (int)(row0 % g.py);
+    const long long zx = row0 / g.py;
+    const int xo = (int)(zx % g.n_bx);
+    const int z = (int)(zx / g.n_bx);
+    const bool plane_in = DIM == 3 ? (z >= 1 && z <= g.nz) : z == 0;
+    const bool tile_in = plane_in && y0 >= FK_ROWS_PER_BLOCK
+        && y0 < FK_ROWS_PER_BLOCK + g.ny;
+    int oq = 0;                                      // block-uniform
+    const int* os = occ.s;
+    if (tile_in) {
+        const int b = (y0 - FK_ROWS_PER_BLOCK) / FK_ROWS_PER_BLOCK;
+        const int zq = DIM == 3 ? z - 1 : 0;
+        oq = min(occ.q[zq * occ.q0 + xo * occ.q1 + b * occ.q2], k);
+        os = occ.s + zq * occ.s0 + xo * occ.s1 + b * occ.s2;
     }
 
-    if (nq > 0) {
-        const long long zs = (long long)g.n_bx * g.py * FK_LANES;
-        for (int dz = (DIM == 3 ? -1 : 0); dz <= (DIM == 3 ? 1 : 0); ++dz) {
-            for (int dy = -1; dy <= 1; ++dy) {
-                for (int dx = -1; dx <= 1; ++dx) {
-                    const long long nc = c + dz * zs + dy * FK_LANES + dx;
-                    for (int k2 = 0; k2 < k; ++k2) {
-                        const long long s = (long long)k2 * cells + nc;
-                        const float cx = X[s];
-                        if (!(cx < FK_HALF_SENTINEL)) break;
-                        const float cy = Y[s];
-                        const float cz = DIM == 3 ? Z[s] : 0.0f;
-                        const float cvx = VX[s];
-                        const float cvy = VY[s];
-                        const float cvz = DIM == 3 ? VZ[s] : 0.0f;
-                        float cp, cir;
-                        fk_eos_terms(rho[s], e, &cp, &cir);
+    // warp w < FK_TILE_ROWS: each lane's valid ranks in row w, and the
+    // row's queries rank-major
+    const int w = tid >> 5;
+    const int lt = tid & (FK_TILE_LANES - 1);
+    if (w < FK_TILE_ROWS) {
+        const int lane = lane0 + lt;
+        const long long cw = base + w * FK_LANES + lt;
+        int n = 0;
+        if (y0 + w < FK_ROWS_PER_BLOCK + g.ny && lane >= 1
+            && lane <= FK_TILE_X && xo * FK_TILE_X + lane - 1 < g.nx) {
+            // every rank's x in flight at once; n stops at the first
+            // sentinel rank
+            float xr[KMAX];
 #pragma unroll
-                        for (int q = 0; q < KMAX; ++q) {
-                            if (q < nq) {
-                                const float ddx = qx[q] - cx;
-                                const float ddy = qy[q] - cy;
-                                float r2 = ddx * ddx + ddy * ddy;
-                                float ddz = 0.0f;
-                                if (DIM == 3) {
-                                    ddz = qz[q] - cz;
-                                    r2 = r2 + ddz * ddz;
-                                }
-                                const float inv_r = rsqrtf(fmaxf(r2, 1e-16f));
-                                const float r = r2 * inv_r;
-                                const float hr = fmaxf(h - r, 0.0f);
-                                float psum = qp[q] + cp;
-                                if constexpr (CONT != FK_CONT_NONE) {
-                                    float dot = (qvx[q] - cvx) * ddx
-                                                + (qvy[q] - cvy) * ddy;
-                                    if (DIM == 3)
-                                        dot = dot + (qvz[q] - cvz) * ddz;
-                                    const float d2 = fmaxf(ct.h2 - r2, 0.0f);
-                                    const float d4 = d2 * d2;
-                                    const float t_dot = d4 * dot;
-                                    if (ct.use_corr)
-                                        psum = psum - fminf(fmaxf(
-                                            ct.c_corr * t_dot, -ct.corr_cap),
-                                            ct.corr_cap);
-                                    if (ct.use_alpha) {
-                                        const float rr =
-                                            rsqrtf(r2 + ct.eps_h2);
-                                        psum = psum - ct.c_av * fminf(
-                                            dot * (rr * rr), 0.0f);
-                                    }
-                                    if constexpr (CONT == FK_CONT_SUM)
-                                        sr[q] += d4 * d2;
-                                    else if constexpr (CONT == FK_CONT_RELAX)
-                                        sr[q] += d4 * (dot + ct.kappa_d2 * d2);
-                                    else if constexpr (CONT == FK_CONT_DELTA)
-                                        sr[q] += d4 * ((dot - ct.kappa)
-                                                       + qdel[q] * cir);
-                                    else
-                                        sr[q] += t_dot;
-                                }
-                                const float coef_p =
-                                    psum * (hr * hr * inv_r);
-                                const float coef_v = hr * (qir[q] * cir);
-                                sv[q] += coef_v;
-                                ax[q] += coef_p * ddx + coef_v * cvx;
-                                ay[q] += coef_p * ddy + coef_v * cvy;
-                                if (DIM == 3)
-                                    az[q] += coef_p * ddz + coef_v * cvz;
+            for (int r = 0; r < KMAX; ++r)
+                xr[r] = r < oq ? X[r * cells + cw] : FK_SENTINEL;
+            bool run = true;
+#pragma unroll
+            for (int r = 0; r < KMAX; ++r) {
+                run = run && xr[r] < FK_HALF_SENTINEL;
+                n += run;
+            }
+        }
+        s_n[w][lt] = n;
+        const unsigned below = (1u << lt) - 1u;
+        int nq = 0;
+        for (int r = 0; r < oq; ++r) {
+            const unsigned mask = __ballot_sync(0xffffffffu, n > r);
+            if (mask == 0u) break;
+            if (n > r)
+                s_q[w][nq + __popc(mask & below)] =
+                    (unsigned short)((r << 5) | lt);
+            nq += __popc(mask);
+        }
+        if (lt == 0) s_nrow[w] = nq;
+    }
+    __syncthreads();
+    int nq = 0;
+#pragma unroll
+    for (int rr = 0; rr < FK_TILE_ROWS; ++rr) nq += s_nrow[rr];
+    for (int i = tid; i < FK_TILE_ROWS * k * FK_TILE_LANES; i += FK_THREADS) {
+        const int rr = i / (k * FK_TILE_LANES);
+        const int r = i / FK_TILE_LANES - rr * k;
+        const int l = i % FK_TILE_LANES;
+        if (r >= s_n[rr][l])
+            fk_fill<FUSE, CONT>(acc_out, flag_out, rho_out,
+                                r * cells + base + rr * FK_LANES + l, ch);
+    }
+
+    const long long zs = (long long)g.n_bx * g.py;   // rows per z plane
+    for (int q0 = 0; q0 < nq; q0 += FK_THREADS) {
+        const int j = q0 + tid;
+        const bool active = j < nq;
+        int l = 0, qr = 0;                  // the query's lane and tile row
+        long long s = 0;
+        float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+        float qvx = 0.0f, qvy = 0.0f, qvz = 0.0f;
+        float qp = 0.0f, qir = 0.0f, qdel = 0.0f;
+        if (active) {
+            int jj = j;
+            while (qr < FK_TILE_ROWS - 1 && jj >= s_nrow[qr])
+                jj -= s_nrow[qr++];
+            const int code = s_q[qr][jj];
+            l = code & (FK_TILE_LANES - 1);
+            s = (code >> 5) * cells + base + qr * FK_LANES + l;
+            qx = X[s];
+            qy = Y[s];
+            qvx = VX[s];
+            qvy = VY[s];
+            if (DIM == 3) {
+                qz = Z[s];
+                qvz = VZ[s];
+            }
+            const float rq = rho[s];
+            fk_eos_terms(rq, e, &qp, &qir);
+            if (CONT == FK_CONT_DELTA) qdel = rq * ct.kappa_over_mv;
+        }
+        float ax = 0.0f, ay = 0.0f, az = 0.0f, sv = 0.0f, sr = 0.0f;
+        for (int dz = (DIM == 3 ? -1 : 0); dz <= (DIM == 3 ? 1 : 0); ++dz) {
+            const int kz = min(os[(dz + 1) * occ.s3], k);
+            if (kz == 0) continue;                   // block-uniform
+            for (int r0 = 0; r0 < kz; r0 += SR) {
+                const int rn = min(SR, kz - r0);
+                __syncthreads();      // the last pass's readers are done
+                if (r0 == 0) {
+                    for (int i = tid; i < FK_STAGE_CELLS; i += FK_THREADS)
+                        s_cnt[i] = kz;
+                    __syncthreads();
+                }
+                // one thread per staged slot (rank-major, so a warp reads
+                // neighbouring lanes): every load in flight at once; a
+                // cell's count falls to its first sentinel rank
+                for (int i = tid; i < rn * FK_STAGE_CELLS; i += FK_THREADS) {
+                    const int r = i / FK_STAGE_CELLS;
+                    const int ci = i - r * FK_STAGE_CELLS;
+                    const int sl = lane0 - 1 + ci % FK_STAGE_LANES;
+                    if (sl < 0 || sl >= FK_LANES) {
+                        s_cnt[ci] = 0;
+                        continue;
+                    }
+                    const long long t = (r0 + r) * cells
+                        + (row0 + dz * zs + ci / FK_STAGE_LANES - 1)
+                        * FK_LANES + sl;
+                    const float x = X[t];
+                    const float yv = Y[t], zv = DIM == 3 ? Z[t] : 0.0f;
+                    const float vxv = VX[t], vyv = VY[t];
+                    const float vzv = DIM == 3 ? VZ[t] : 0.0f;
+                    const float rv = rho[t];
+                    if (!(x < FK_HALF_SENTINEL)) {
+                        atomicMin(&s_cnt[ci], r0 + r);
+                        continue;
+                    }
+                    float cp, cir;
+                    fk_eos_terms(rv, e, &cp, &cir);
+                    s_a[i] = make_float4(x, yv, zv, cp);
+                    s_b[i] = make_float4(vxv, vyv, vzv, cir);
+                }
+                __syncthreads();
+                if (!active) continue;
+                for (int dy = 0; dy < 3; ++dy) {
+                    for (int dx = 0; dx < 3; ++dx) {
+                        const int ci = (qr + dy) * FK_STAGE_LANES + l + dx;
+                        const int hi = min(s_cnt[ci], r0 + rn) - r0;
+                        for (int c2 = 0; c2 < hi; ++c2) {
+                            const float4 ca = s_a[c2 * FK_STAGE_CELLS + ci];
+                            const float4 cb = s_b[c2 * FK_STAGE_CELLS + ci];
+                            const float ddx = qx - ca.x;
+                            const float ddy = qy - ca.y;
+                            float r2 = ddx * ddx + ddy * ddy;
+                            float ddz = 0.0f;
+                            if (DIM == 3) {
+                                ddz = qz - ca.z;
+                                r2 = r2 + ddz * ddz;
                             }
+                            const float inv_r = rsqrtf(fmaxf(r2, 1e-16f));
+                            const float r = r2 * inv_r;
+                            const float hr = fmaxf(h - r, 0.0f);
+                            float psum = qp + ca.w;
+                            if constexpr (CONT != FK_CONT_NONE) {
+                                float dot = (qvx - cb.x) * ddx
+                                            + (qvy - cb.y) * ddy;
+                                if (DIM == 3) dot = dot + (qvz - cb.z) * ddz;
+                                const float d2 = fmaxf(ct.h2 - r2, 0.0f);
+                                const float d4 = d2 * d2;
+                                const float t_dot = d4 * dot;
+                                if (ct.use_corr)
+                                    psum = psum - fminf(fmaxf(
+                                        ct.c_corr * t_dot, -ct.corr_cap),
+                                        ct.corr_cap);
+                                if (ct.use_alpha) {
+                                    const float rr = rsqrtf(r2 + ct.eps_h2);
+                                    psum = psum - ct.c_av * fminf(
+                                        dot * (rr * rr), 0.0f);
+                                }
+                                if constexpr (CONT == FK_CONT_SUM)
+                                    sr += d4 * d2;
+                                else if constexpr (CONT == FK_CONT_RELAX)
+                                    sr += d4 * (dot + ct.kappa_d2 * d2);
+                                else if constexpr (CONT == FK_CONT_DELTA)
+                                    sr += d4 * ((dot - ct.kappa)
+                                                + qdel * cb.w);
+                                else
+                                    sr += t_dot;
+                            }
+                            const float coef_p = psum * (hr * hr * inv_r);
+                            const float coef_v = hr * (qir * cb.w);
+                            sv += coef_v;
+                            ax += coef_p * ddx + coef_v * cb.x;
+                            ay += coef_p * ddy + coef_v * cb.y;
+                            if (DIM == 3) az += coef_p * ddz + coef_v * cb.z;
                         }
                     }
                 }
             }
         }
-    }
-
-    if constexpr (FUSE) {
-        const FkCell cc = fk_decode(c, g);
-#pragma unroll
-        for (int q = 0; q < KMAX; ++q) {
-            if (q < k) {
-                const long long s = (long long)q * cells + c;
-                if (q < nq) {
-                    force_step_epilogue<DIM>(
-                        qx[q], qy[q], qz[q], qvx[q], qvy[q], qvz[q],
-                        ax[q] - qvx[q] * sv[q], ay[q] - qvy[q] * sv[q],
-                        az[q] - qvz[q] * sv[q], st, cc, g, acc_out,
-                        flag_out, s, ch);
-                    if constexpr (CONT == FK_CONT_SUM) {
-                        rho_out[s] = ct.rho_sum_scale * sr[q];
-                    } else if constexpr (CONT != FK_CONT_NONE) {
-                        const float rho_q = rho[s];     // raw, reread
-                        float rn = rho_q + ct.drho_scale * sr[q];
-                        if (CONT == FK_CONT_RELAX) rn = ct.one_m_l * rn;
-                        rho_out[s] = rn;
-                    }
-                } else {
-                    if (CONT != FK_CONT_NONE) rho_out[s] = 0.0f;
-                    acc_out[s] = FK_SENTINEL;
-                    acc_out[ch + s] = FK_SENTINEL;
-                    acc_out[2 * ch + s] = FK_SENTINEL;
-                    acc_out[3 * ch + s] = 0.0f;
-                    acc_out[4 * ch + s] = 0.0f;
-                    acc_out[5 * ch + s] = 0.0f;
-                    flag_out[s] = 0.0f;
-                }
+        if (!active) continue;
+        ax = ax - qvx * sv;
+        ay = ay - qvy * sv;
+        az = DIM == 3 ? az - qvz * sv : 0.0f;
+        if constexpr (FUSE) {
+            const FkCell cc{lane0 + l, y0 + qr, xo, z};
+            force_step_epilogue<DIM>(qx, qy, qz, qvx, qvy, qvz, ax, ay, az,
+                                     st, cc, g, acc_out, flag_out, s, ch);
+            if constexpr (CONT == FK_CONT_SUM) {
+                rho_out[s] = ct.rho_sum_scale * sr;
+            } else if constexpr (CONT != FK_CONT_NONE) {
+                const float rho_q = rho[s];     // raw, reread
+                float rn = rho_q + ct.drho_scale * sr;
+                if (CONT == FK_CONT_RELAX) rn = ct.one_m_l * rn;
+                rho_out[s] = rn;
             }
-        }
-        return;
-    }
-    float* AX = acc_out;
-    float* AY = acc_out + ch;
-    float* AZ = acc_out + 2 * ch;
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q) {
-        if (q < k) {
-            const long long s = (long long)q * cells + c;
-            const bool live = q < nq;
-            AX[s] = live ? ax[q] - qvx[q] * sv[q] : 0.0f;
-            AY[s] = live ? ay[q] - qvy[q] * sv[q] : 0.0f;
-            AZ[s] = (live && DIM == 3) ? az[q] - qvz[q] * sv[q] : 0.0f;
+        } else {
+            acc_out[s] = ax;
+            acc_out[ch + s] = ay;
+            acc_out[2 * ch + s] = az;
         }
     }
 }
 
-template <int KMAX, bool FUSE, int CONT>
-static void launch_force(const float* fields, const float* rho, float* out,
-                         float* flag, float* rho_out, const FkGeom& g,
-                         float h, const FkEos& e, const FkStep& s,
-                         const FkCont& ct, cudaStream_t st) {
-    const unsigned blocks = (unsigned)((g.cells + 127) / 128);
-    if (g.dim == 3)
-        force_kernel<KMAX, 3, FUSE, CONT><<<blocks, 128, 0, st>>>(
-            fields, rho, out, flag, rho_out, g, h, e, s, ct);
-    else
-        force_kernel<KMAX, 2, FUSE, CONT><<<blocks, 128, 0, st>>>(
-            fields, rho, out, flag, rho_out, g, h, e, s, ct);
+// Dynamic shared memory of one block: two float4 per staged slot of a pass
+template <int KMAX>
+constexpr int fk_stage_bytes() {
+    return 2 * (KMAX < FK_STAGE_RANKS ? KMAX : FK_STAGE_RANKS)
+           * FK_STAGE_CELLS * (int)sizeof(float4);
 }
 
-template <bool FUSE, int CONT>
-static int force_entry(const float* fields, const float* rho, float* out,
-                       float* flag, float* rho_out, const FkGeom& g, float h,
-                       const FkEos& e, const FkStep& s, const FkCont& ct,
-                       void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (g.k <= 8)
-        launch_force<8, FUSE, CONT>(fields, rho, out, flag, rho_out, g, h, e,
-                                    s, ct, st);
-    else if (g.k <= 16)
-        launch_force<16, FUSE, CONT>(fields, rho, out, flag, rho_out, g, h,
-                                     e, s, ct, st);
-    else
-        return (int)cudaErrorInvalidValue;
+// Past 48 KB with the static part, a block gets only the dynamic shared
+// memory its kernel opted in to: set once per instantiation and device
+#define FK_MAX_DEVICES 64
+template <int KMAX, int DIM, bool FUSE, int CONT>
+static cudaError_t fk_opt_in() {
+    static std::atomic<bool> done[FK_MAX_DEVICES];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < FK_MAX_DEVICES && done[dev].load(std::memory_order_relaxed))
+        return cudaSuccess;
+    err = cudaFuncSetAttribute(force_kernel<KMAX, DIM, FUSE, CONT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               fk_stage_bytes<KMAX>());
+    if (err == cudaSuccess && dev < FK_MAX_DEVICES)
+        done[dev].store(true, std::memory_order_relaxed);
+    return err;
+}
+
+template <int KMAX, int DIM, bool FUSE, int CONT>
+static int launch_force(const float* fields, const float* rho,
+                        const FkOcc& occ, float* out, float* flag,
+                        float* rho_out, const FkGeom& g, float h,
+                        const FkEos& e, const FkStep& s, const FkCont& ct,
+                        cudaStream_t st) {
+    const cudaError_t err = fk_opt_in<KMAX, DIM, FUSE, CONT>();
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = g.cells / (FK_TILE_LANES * FK_TILE_ROWS);
+    force_kernel<KMAX, DIM, FUSE, CONT>
+        <<<(unsigned)blocks, FK_THREADS, fk_stage_bytes<KMAX>(), st>>>(
+            fields, rho, occ, out, flag, rho_out, g, h, e, s, ct);
     return (int)cudaGetLastError();
 }
 
-extern "C" int fk_force(const float* fields, const float* rho, float* out,
-                        int dim, int k, int nx, int ny, int nz, int n_bx,
-                        int py, int pz, long long cells, float h, float rho0,
+// One block per tile of FK_TILE_ROWS rows x 32 lanes: the rows of a
+// (z, x tile) plane (py of them, a multiple of 8) lie in whole tiles
+template <bool FUSE, int CONT>
+static int force_entry(const float* fields, const float* rho,
+                       const FkOcc& occ, float* out, float* flag,
+                       float* rho_out, const FkGeom& g, float h,
+                       const FkEos& e, const FkStep& s, const FkCont& ct,
+                       void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (g.cells % FK_LANES != 0 || g.py % FK_TILE_ROWS != 0
+        || (g.dim != 2 && g.dim != 3) || g.k < 1 || g.k > 16)
+        return (int)cudaErrorInvalidValue;
+    if (g.k <= 8)
+        return g.dim == 3
+            ? launch_force<8, 3, FUSE, CONT>(fields, rho, occ, out, flag,
+                                             rho_out, g, h, e, s, ct, st)
+            : launch_force<8, 2, FUSE, CONT>(fields, rho, occ, out, flag,
+                                             rho_out, g, h, e, s, ct, st);
+    return g.dim == 3
+        ? launch_force<16, 3, FUSE, CONT>(fields, rho, occ, out, flag,
+                                          rho_out, g, h, e, s, ct, st)
+        : launch_force<16, 2, FUSE, CONT>(fields, rho, occ, out, flag,
+                                          rho_out, g, h, e, s, ct, st);
+}
+
+// The dynamic shared memory (bytes) of one force block at cell capacity
+// k, -1 past 16; each mode's kernel adds its static part (-Xptxas -v)
+extern "C" int fk_force_smem(int k) {
+    if (k < 1 || k > 16) return -1;
+    return k <= 8 ? fk_stage_bytes<8>() : fk_stage_bytes<16>();
+}
+
+// occ_q, occ_s: the bounds' device pointers; ostr: their 7 strides in
+// elements (occ_q's 3, then occ_s's 4), a host array
+static FkOcc fk_occ_from(const int* occ_q, const int* occ_s,
+                         const long long* ostr) {
+    return FkOcc{occ_q, occ_s, ostr[0], ostr[1], ostr[2],
+                 ostr[3], ostr[4], ostr[5], ostr[6]};
+}
+
+// occ_q, occ_s: sph.accel_planes' bounds (int32, any strides); ostr: their
+// 7 strides in elements, a host array
+extern "C" int fk_force(const float* fields, const float* rho,
+                        const int* occ_q, const int* occ_s,
+                        const long long* ostr, float* out, int dim, int k,
+                        int nx, int ny, int nz, int n_bx, int py, int pz,
+                        long long cells, float h, float rho0,
                         float rho_floor, float stiffness, int tait,
                         float tait_b, float tait_gamma, float m_spiky,
                         float m_visc_sqrt, int clamp, void* stream) {
     const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
     const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
                   clamp, m_spiky, m_visc_sqrt};
-    return force_entry<false, FK_CONT_NONE>(fields, rho, out, nullptr,
-                                            nullptr, g, h, e, FkStep{},
-                                            FkCont{}, stream);
+    return force_entry<false, FK_CONT_NONE>(
+        fields, rho, fk_occ_from(occ_q, occ_s, ostr), out, nullptr, nullptr,
+        g, h, e, FkStep{}, FkCont{}, stream);
 }
 
 // FkStep from the host float array of sph._step_args: dt, -restitution,
@@ -472,30 +686,34 @@ static FkStep fk_step_from(const float* step, int n_obs) {
 }
 
 extern "C" int fk_force_step(const float* fields, const float* rho,
-                             float* new6, float* flag, int dim, int k,
-                             int nx, int ny, int nz, int n_bx, int py,
-                             int pz, long long cells, float h, float rho0,
-                             float rho_floor, float stiffness, int tait,
-                             float tait_b, float tait_gamma, float m_spiky,
+                             const int* occ_q, const int* occ_s,
+                             const long long* ostr, float* new6, float* flag,
+                             int dim, int k, int nx, int ny, int nz,
+                             int n_bx, int py, int pz, long long cells,
+                             float h, float rho0, float rho_floor,
+                             float stiffness, int tait, float tait_b,
+                             float tait_gamma, float m_spiky,
                              float m_visc_sqrt, int clamp, const float* step,
                              int n_obs, void* stream) {
     if (n_obs < 0 || n_obs > FK_MAX_OBS) return (int)cudaErrorInvalidValue;
     const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
     const FkEos e{rho0, rho_floor, stiffness, tait, tait_b, tait_gamma,
                   clamp, m_spiky, m_visc_sqrt};
-    return force_entry<true, FK_CONT_NONE>(fields, rho, new6, flag, nullptr,
-                                           g, h, e, fk_step_from(step, n_obs),
-                                           FkCont{}, stream);
+    return force_entry<true, FK_CONT_NONE>(
+        fields, rho, fk_occ_from(occ_q, occ_s, ostr), new6, flag, nullptr,
+        g, h, e, fk_step_from(step, n_obs), FkCont{}, stream);
 }
 
 // rho: the CARRIED density (halo lanes refreshed); rho_out: next step's.
 // form: FK_CONT_RATE..FK_CONT_DELTA (sph.CONT_FORMS); cont: the host float
 // array of sph._cont_args, the float fields of FkCont in order.
 extern "C" int fk_force_step_cont(const float* fields, const float* rho,
-                                  float* new6, float* rho_out, float* flag,
-                                  int dim, int k, int nx, int ny, int nz,
-                                  int n_bx, int py, int pz, long long cells,
-                                  float h, float rho0, float rho_floor,
+                                  const int* occ_q, const int* occ_s,
+                                  const long long* ostr, float* new6,
+                                  float* rho_out, float* flag, int dim,
+                                  int k, int nx, int ny, int nz, int n_bx,
+                                  int py, int pz, long long cells, float h,
+                                  float rho0, float rho_floor,
                                   float stiffness, int tait, float tait_b,
                                   float tait_gamma, float m_spiky,
                                   float m_visc_sqrt, int clamp,
@@ -510,23 +728,24 @@ extern "C" int fk_force_step_cont(const float* fields, const float* rho,
     const FkCont ct{cont[0], cont[1], cont[2], cont[3], cont[4], cont[5],
                     cont[6], cont[7], cont[8], cont[9], cont[10],
                     use_corr, use_alpha};
+    const FkOcc occ = fk_occ_from(occ_q, occ_s, ostr);
     switch (form) {
         case FK_CONT_RATE:
-            return force_entry<true, FK_CONT_RATE>(fields, rho, new6, flag,
-                                                   rho_out, g, h, e, s, ct,
-                                                   stream);
+            return force_entry<true, FK_CONT_RATE>(
+                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
+                stream);
         case FK_CONT_RELAX:
-            return force_entry<true, FK_CONT_RELAX>(fields, rho, new6, flag,
-                                                    rho_out, g, h, e, s, ct,
-                                                    stream);
+            return force_entry<true, FK_CONT_RELAX>(
+                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
+                stream);
         case FK_CONT_SUM:
-            return force_entry<true, FK_CONT_SUM>(fields, rho, new6, flag,
-                                                  rho_out, g, h, e, s, ct,
-                                                  stream);
+            return force_entry<true, FK_CONT_SUM>(
+                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
+                stream);
         case FK_CONT_DELTA:
-            return force_entry<true, FK_CONT_DELTA>(fields, rho, new6, flag,
-                                                    rho_out, g, h, e, s, ct,
-                                                    stream);
+            return force_entry<true, FK_CONT_DELTA>(
+                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
+                stream);
         default:
             return (int)cudaErrorInvalidValue;
     }

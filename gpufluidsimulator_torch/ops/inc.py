@@ -55,6 +55,8 @@ TILE = 64 * LANES      # the reference's routing tile (route.TILE): the unit
 MAX_F32_ID = 2 ** 24   # ids ride the planes as float32: exact below this
 MAX_COMPACT_CHANNELS = 8   # channels the CUDA compact takes
 # (csrc/compact.cu CMP_MAX_CH)
+COMPACT_CHUNK = 4096   # flag slots per block of the CUDA compact
+# (csrc/compact.cu CMP_CHUNK)
 RESUM_EVERY = 64       # continuity tier, cont_form="rate": steps between
 # summation-density re-syncs of the carried plane (the reference's
 # inc.py:70); "sum" and "relax" re-anchor in the sweep and resum only at
@@ -129,13 +131,38 @@ def compact_plain(channels, flags: torch.Tensor, cap: int):
     return vals, torch.clamp_max(total, cap), total
 
 
+def compact_chunks(m: int) -> int:
+    """Blocks (chunks of COMPACT_CHUNK flag slots) of the CUDA compact over
+    ``m`` slots; the last chunk may be partial."""
+    return -(-m // COMPACT_CHUNK)
+
+
+_compact_scratch = {}
+
+
+def compact_scratch(device, nb: int) -> torch.Tensor:
+    """The CUDA compact's scratch on ``device``: at least 2 + 2 nb int32,
+    the chunk ticket, the epoch and one 64-bit status word per chunk.  Made
+    zeroed at first use, and again when a call needs more chunks; otherwise
+    kept across calls, which never clear it: the kernel's last block resets
+    the ticket and advances the epoch that tags the status words.  Calls
+    that share it must be ordered on one stream, as the port's are."""
+    device = torch.device(device)
+    s = _compact_scratch.get(device)
+    if s is None or s.numel() < 2 + 2 * nb:
+        s = torch.zeros(2 + 2 * nb, dtype=torch.int32, device=device)
+        _compact_scratch[device] = s
+    return s
+
+
 def compact(channels, flags: torch.Tensor, cap: int):
     """Flagged compaction: the CUDA kernel ``compact`` on the card, the
     plain version for CPU tensors.  ``channels``: a sequence of single
-    channels shaped like ``flags`` (``flags`` float32, > 0.5 = flagged),
-    read in place, never copied (``[*stack, idp]`` passes a stack's views).
-    Returns (vals (C, cap), m, total): m = min(total, cap) and total the
-    flagged count, as () int32 tensors on the device."""
+    channels shaped like ``flags`` (``flags`` float32, > 0.5 = flagged,
+    16-byte aligned), read in place, never copied (``[*stack, idp]``
+    passes a stack's views).  Returns (vals (C, cap), m, total): m =
+    min(total, cap) and total the flagged count, as () int32 tensors on the
+    device.  One memset of ``vals`` and one single-pass kernel."""
     if flags.device.type == "cpu":
         return compact_plain(channels, flags, cap)
     if not 1 <= len(channels) <= MAX_COMPACT_CHANNELS:
@@ -143,21 +170,27 @@ def compact(channels, flags: torch.Tensor, cap: int):
                          f"{MAX_COMPACT_CHANNELS} channels, got "
                          f"{len(channels)}")
     _build.check_tensor(flags, "flags", torch.float32, tuple(flags.shape))
+    if flags.data_ptr() % 16:
+        raise ValueError("flags must be 16-byte aligned")
     for c in channels:
         _build.check_tensor(c, "channel", torch.float32, tuple(flags.shape))
     m = flags.numel()
-    nb = -(-m // 4096)                   # csrc/compact.cu CMP_CHUNK
-    vals = torch.zeros((len(channels), cap), dtype=torch.float32,
-                       device=flags.device)
-    scratch = torch.empty(nb + 2, dtype=torch.int32, device=flags.device)
+    nb = compact_chunks(m)
+    # one allocation: the rows, then total and m as two int32
+    size = len(channels) * cap
+    buf = torch.empty(size + 2, dtype=torch.float32, device=flags.device)
+    vals = buf[:size].view(len(channels), cap)
+    counts = buf[size:].view(torch.int32)
+    scratch = compact_scratch(flags.device, nb)
     ptrs = (ctypes.c_void_p * len(channels))(
         *[c.data_ptr() for c in channels])
     _build.launch("compact", flags,
                   ctypes.cast(ptrs, ctypes.c_void_p),
                   ctypes.c_int(len(channels)),
                   _build.ptr(flags), ctypes.c_longlong(m), _build.ptr(vals),
-                  ctypes.c_int(cap), _build.ptr(scratch), ctypes.c_int(nb))
-    return vals, scratch[nb + 1], scratch[nb]
+                  ctypes.c_int(cap), _build.ptr(scratch), ctypes.c_int(nb),
+                  _build.ptr(counts))
+    return vals, counts[1], counts[0]
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,9 @@ from . import planes as pm
 from . import route
 from .planes import LANES, PlaneGeom
 
-# The CUDA sweeps keep a cell's query ranks in registers, unrolled up to
-# this many (csrc/density.cu, csrc/force.cu)
+# The CUDA sweeps take up to this many ranks a cell (csrc/density.cu keeps
+# a cell's query ranks in registers; csrc/force.cu stages up to 16 ranks a
+# cell in shared memory)
 MAX_KERNEL_K = 16
 
 
@@ -53,18 +54,29 @@ def _query_mask(x: torch.Tensor, geom: PlaneGeom) -> torch.Tensor:
     return (_window(x, geom) < pm.SENTINEL * 0.5) & interior
 
 
-def _check_bounds(occ_q, occ_s, geom: PlaneGeom) -> None:
-    """The bounds are taken for interface parity and not read by the
-    kernels, so they may be strided views."""
+def _check_bounds(occ_q, occ_s, geom: PlaneGeom, device=None) -> None:
+    """The force kernels read the bounds through their strides, so they may
+    be strided views (density takes them for interface parity); with
+    ``device``, they must lie on it."""
     nzq = geom.nz if geom.dim == 3 else 1
     for name, t, shape in (("occ_q", occ_q, (nzq, geom.n_bx, geom.n_by)),
                            ("occ_s", occ_s, (nzq, geom.n_bx, geom.n_by, 3))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be int32 of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+        if device is not None and t.device != device:
+            raise ValueError(f"{name} must be on {device}, got {t.device}")
     if geom.k > MAX_KERNEL_K:
         raise ValueError(f"the CUDA sweeps take cell_capacity <= "
                          f"{MAX_KERNEL_K}, got {geom.k}")
+
+
+def _occ_args(occ_q, occ_s):
+    """The bounds as csrc/force.cu takes them: two pointers and a host
+    array of their 7 strides in elements."""
+    strides = (ctypes.c_longlong * 7)(*occ_q.stride(), *occ_s.stride())
+    return [_build.ptr(occ_q), _build.ptr(occ_s),
+            ctypes.cast(strides, ctypes.c_void_p)]
 
 
 def _geom_args(geom: PlaneGeom):
@@ -289,19 +301,23 @@ def accel_planes(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                  params: SimParams, geom: PlaneGeom) -> torch.Tensor:
     """Pressure + viscosity acceleration on the planes, the EOS fused: the
     CUDA kernel ``force`` on the card, the plain version for CPU tensors.
-    ``rho_planes`` must already carry refreshed halo lanes (``halo_x``)."""
+    ``rho_planes`` must already carry refreshed halo lanes (``halo_x``).
+    The kernel skips an 8-row block whose ``occ_q`` is 0 and bounds its
+    rank loops by ``occ_q``/``occ_s``, so they must come from these planes
+    (``planes.occupancy_bounds``)."""
     if field_planes.device.type == "cpu":
         return accel_plain(field_planes, rho_planes, params, geom)
     shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
     _build.check_tensor(field_planes, "field_planes", torch.float32,
                         (6,) + shape)
     _build.check_tensor(rho_planes, "rho_planes", torch.float32, shape)
-    _check_bounds(occ_q, occ_s, geom)
+    _check_bounds(occ_q, occ_s, geom, field_planes.device)
     out = torch.empty((3,) + shape, dtype=torch.float32,
                       device=field_planes.device)
     _build.launch("force", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
-                  _build.ptr(out), *_geom_args(geom), *_eos_args(params))
+                  *_occ_args(occ_q, occ_s), _build.ptr(out),
+                  *_geom_args(geom), *_eos_args(params))
     return out
 
 
@@ -408,8 +424,8 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                         device=field_planes.device)
     _build.launch("force_step", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
-                  _build.ptr(new6), _build.ptr(flagp), *_geom_args(geom),
-                  *_eos_args(params),
+                  *_occ_args(occ_q, occ_s), _build.ptr(new6),
+                  _build.ptr(flagp), *_geom_args(geom), *_eos_args(params),
                   ctypes.cast(step, ctypes.c_void_p),
                   ctypes.c_int(len(params.obstacles)))
     return new6, flagp
@@ -422,7 +438,7 @@ def _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
     _build.check_tensor(field_planes, "field_planes", torch.float32,
                         (6,) + shape)
     _build.check_tensor(rho_planes, "rho_planes", torch.float32, shape)
-    _check_bounds(occ_q, occ_s, geom)
+    _check_bounds(occ_q, occ_s, geom, field_planes.device)
     if len(params.obstacles) > MAX_KERNEL_OBSTACLES:
         raise ValueError(f"the CUDA force step takes at most "
                          f"{MAX_KERNEL_OBSTACLES} obstacles, got "
@@ -496,9 +512,9 @@ def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     flagp = torch.empty(shape, dtype=torch.float32, device=dev)
     _build.launch("force_step_cont", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
-                  _build.ptr(new6), _build.ptr(rho_new), _build.ptr(flagp),
-                  *_geom_args(geom), *_eos_args(params),
-                  ctypes.cast(step, ctypes.c_void_p),
+                  *_occ_args(occ_q, occ_s), _build.ptr(new6),
+                  _build.ptr(rho_new), _build.ptr(flagp), *_geom_args(geom),
+                  *_eos_args(params), ctypes.cast(step, ctypes.c_void_p),
                   ctypes.c_int(len(params.obstacles)), *_cont_args(params))
     return new6, rho_new, flagp
 

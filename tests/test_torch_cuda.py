@@ -8,10 +8,14 @@ Imports nothing of JAX, so it runs on a machine without it:
 
 Small scenes that reach the branches the config-3 and config-4 checks in
 ``chip_smoke.py`` do not: 2D, several x tiles (halo lanes), the Tait EOS,
-a cell capacity of 16 (the kernels' second register width), particles
-inside both obstacles and through the walls, forced drops, every form
-and switch of the continuity step, and the packed-pair sweep with a
-sentinel tail and a query tile whose three candidate ranges are empty.
+a cell capacity of 16 (the kernels' second rank width; two staging passes
+of the force kernels), particles inside both obstacles and through the
+walls, forced drops, every form and switch of the continuity step, 27
+cells at full capacity above an empty 8-row block (occ_q 0), the
+compaction's edges (no flag, every flag, the first and last slot, 1 and
+8 channels, a partial last chunk, calls in a row), and the packed-pair
+sweep with a sentinel tail and a query tile whose three candidate
+ranges are empty.
 Tolerances as in ``chip_smoke.py``: occupancy, placement, gather,
 compaction and consolidation exact; density and the packed sweep relative
 1e-5 and force 1e-4 (summation order and ``rsqrtf``); the fused force
@@ -33,6 +37,9 @@ from gpufluidsimulator_torch.ops import sph
 pytestmark = pytest.mark.cuda
 
 CASES = ["2d", "3d", "multi_tile", "3d_tait", "3d_k16"]
+# the force kernels' edge: 27 cells at full capacity K around one query
+# cell, in the y block above an empty one (occ_q 0 beside full cells)
+FORCE_EDGE = "full_stencil"
 
 
 @pytest.fixture
@@ -43,6 +50,18 @@ def cuda():
 
 
 def _scene(case):
+    if case == FORCE_EDGE:
+        # cells x, z in 2..4 and y in 8..10 (y block 1) hold K particles
+        # each; y block 0 (cells 0..7) holds none
+        params, _ = ft.scenes.double_dam_break(n=1200, dim=3, device="cpu")
+        rng = np.random.default_rng(4)
+        k = params.cell_capacity
+        corner = np.array([(x, y, z) for x in (2, 3, 4) for y in (8, 9, 10)
+                           for z in (2, 3, 4)], dtype=np.float64)
+        pos = (corner[:, None, :] + rng.uniform(0.05, 0.95, (27, k, 3))) \
+            * np.asarray(params.cells_axis) + np.asarray(params.bounds_min)
+        pos = pos.reshape(-1, 3).astype(np.float32)
+        return params, ft.make_state(pos, np.zeros_like(pos), device="cpu")
     if case == "multi_tile":
         params, _ = ft.scenes.dam_break(n=900, dim=2, jitter=0.2, seed=5,
                                         device="cpu")
@@ -68,7 +87,7 @@ def _rel(a, b):
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-9))
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + [FORCE_EDGE])
 def test_kernels_match_plain(cuda, case):
     params, state = _scene(case)
     geom = pm.geometry(params)
@@ -76,6 +95,10 @@ def test_kernels_match_plain(cuda, case):
                               (state.pos, state.vel, state.ids)),
                             params, geom)
     planes = table.planes
+    if case == FORCE_EDGE:
+        occ_q, _ = pm.occupancy_bounds(planes, params, geom)
+        assert int(occ_q[:, :, 0].max()) == 0
+        assert int(occ_q[:, :, 1].max()) == geom.k
     before = dict(_build.launches)
 
     got = pm.occ_rowmax(planes[pm.FIELD_X], geom)
@@ -142,8 +165,8 @@ def _inc_scene(case, seed=5):
     (numpy-seeded velocities), so movers, wall hits and, in 3D, obstacle
     hits occur in one step; 3d_collide also seeds particles inside the box
     pillar and the sphere."""
-    if case == "multi_tile":
-        params, state = _scene("multi_tile")
+    if case in ("multi_tile", FORCE_EDGE):
+        params, state = _scene(case)
     elif case == "2d":
         params, state = ft.scenes.dam_break(n=600, dim=2, jitter=0.3,
                                             seed=11, device="cpu")
@@ -198,10 +221,11 @@ def _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom):
     return int(differ.sum())
 
 
-@pytest.mark.parametrize("case", INC_CASES)
+@pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE])
 def test_inc_kernels_match_plain(cuda, case):
     """force_step, compact and consolidate against their plain versions on
-    the same inputs, and one launch each."""
+    the same inputs, and one launch of each wrapper a call (compact: one
+    memset and one single-pass kernel)."""
     params, state = _inc_scene(case)
     geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
     if case == "multi_tile":
@@ -343,11 +367,12 @@ def _carried_rho(rho, p6, geom, seed=3):
 
 
 @pytest.mark.parametrize("form", list(CONT_CASES))
-@pytest.mark.parametrize("case", INC_CASES)
+@pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE])
 def test_force_step_cont_matches_plain(cuda, case, form):
     """force_step_cont against its plain version in every form and switch,
     in 2D and 3D (with particles inside both obstacles), over several x
-    tiles and at K = 16; one launch, and no other kernel."""
+    tiles, at K = 16 and around 27 full cells; one launch, and no other
+    kernel."""
     params, state = _inc_scene(case)
     params = params.replace(**CONT_CASES[form])
     geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
@@ -399,6 +424,46 @@ def test_rho_mover_path_matches_plain(cuda, case):
     want = dict.fromkeys(before, 0)
     want.update(compact=1, consolidate_rho=1, consolidate=1)
     assert {k: _build.launches[k] - before[k] for k in before} == want
+
+
+COMPACT_CASES = ["none", "all", "ends", "one_channel", "eight_channels",
+                 "ragged"]
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_compact_edges_match_plain(cuda, case):
+    """The single-pass compact against its plain version, exact, on flag
+    planes of 3 chunks (4,096 slots each): no flag, every slot flagged
+    (total far above cap, so m == cap), only the first and the last slot,
+    1 and 8 channels, and a plane of 3 chunks + 1,237 slots (a partial last
+    chunk, not a whole number of float4).  Three calls in a row, as a step
+    makes them, each with the scratch left by the last: the epoch tags
+    keep every call's look-back to its own chunks."""
+    rng = np.random.default_rng(2)
+    m = 3 * inc.COMPACT_CHUNK + (1237 if case == "ragged" else 0)
+    n_ch = {"one_channel": 1, "eight_channels": 8}.get(case, 7)
+    chans = [torch.from_numpy(rng.normal(size=m).astype(np.float32))
+             .to(cuda) for _ in range(n_ch)]
+    flags = np.zeros(m, np.float32)
+    if case == "all":
+        flags[:] = 1.0
+    elif case == "ends":
+        flags[[0, m - 1]] = 1.0
+    elif case != "none":
+        flags[rng.random(m) < 0.1] = 1.0
+    flags = torch.from_numpy(flags).to(cuda)
+    want_total = int((flags > 0.5).sum())
+    for cap in (2048, 2048, 100):
+        got = inc.compact(chans, flags, cap)
+        want = inc.compact_plain(chans, flags, cap)
+        assert torch.equal(got[0], want[0])
+        assert int(got[2]) == int(want[2]) == want_total
+        assert int(got[1]) == int(want[1]) == min(want_total, cap)
+    if case == "all":
+        assert want_total == m and int(got[1]) == 100
+    if case == "ends":
+        assert torch.equal(got[0][:, :2], torch.stack(
+            [torch.stack([c[0], c[-1]]) for c in chans]))
 
 
 @pytest.mark.parametrize("case", INC_CASES)

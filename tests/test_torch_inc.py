@@ -229,6 +229,32 @@ def test_compact_matches_jax(cap):
             assert by_id[int(row[6])] == tuple(row[:6])
 
 
+def test_compact_chunks_and_scratch(monkeypatch):
+    """The CUDA compact's host side: ceil(m / 4,096) chunks (a partial last
+    one included), a whole number of float4 loads per chunk, and the
+    scratch (ticket, epoch, a 64-bit status word per chunk): made zeroed,
+    reused by every call that fits it (the kernel resets it itself), made
+    anew and zeroed when a call needs more chunks."""
+    monkeypatch.setattr(tinc, "_compact_scratch", {})
+    chunk = tinc.COMPACT_CHUNK
+    assert chunk % 4 == 0
+    jp, js, geom, _ = _planes_2d()
+    kc = geom.k * geom.cells
+    for m, nb in ((0, 0), (1, 1), (chunk, 1), (chunk + 1, 2),
+                  (kc, -(-kc // chunk))):
+        assert tinc.compact_chunks(m) == nb
+    assert kc % 128 == 0
+    first = tinc.compact_scratch("cpu", 3)
+    assert first.dtype == torch.int32 and first.numel() == 2 + 2 * 3
+    assert not first.any()
+    first[0] = 5
+    assert tinc.compact_scratch("cpu", 2) is first
+    grown = tinc.compact_scratch("cpu", 10)
+    assert grown is not first and grown.numel() == 2 + 2 * 10
+    assert not grown.any()
+    assert tinc.compact_scratch(torch.device("cpu"), 10) is grown
+
+
 def _perturbed(jp, js, geom, s, seed=1):
     """Push the plane positions by up to 0.7 cells (numpy-seeded) so a
     real fraction change cell -> (fields6, flags) as numpy."""

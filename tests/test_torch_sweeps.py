@@ -18,7 +18,7 @@ import gpufluidsimulator_tpu as jfs
 from gpufluidsimulator_tpu.ops import pallas_sph as jsph
 from gpufluidsimulator_tpu.ops import planes as jpm
 
-from gpufluidsimulator_torch import convert
+from gpufluidsimulator_torch import _build, convert
 from gpufluidsimulator_torch.ops import planes as tpm
 from gpufluidsimulator_torch.ops import sph as tsph
 
@@ -97,3 +97,62 @@ def test_density_plain_counts_self_and_neighbours():
     want = m * (kernels.poly6(torch.tensor(0.0), tp.h, 2)
                 + kernels.poly6(d * d, tp.h, 2))
     assert torch.allclose(per, want.expand(2), rtol=1e-6)
+
+
+# -Xptxas -v's report as nvcc 12 prints it for sm_90a: one
+# "Compiling entry function" line per kernel, its stack / spill line, and
+# its register / shared memory line
+_PTXAS = {
+    "no_spills": ("== compact.cu\n"
+                  "ptxas info    : Compiling entry function "
+                  "'_Z14compact_kernel7FkChansiPKfxPfiPiiS3_' for 'sm_90a'\n"
+                  "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                  "loads\n"
+                  "ptxas info    : Used 32 registers, used 1 barriers, 44 "
+                  "bytes smem\n",
+                  {"_Z14compact_kernel7FkChansiPKfxPfiPiiS3_":
+                   {"registers": 32, "spills": 0, "static_smem": 44}}),
+    "spills": ("ptxas info    : Compiling entry function '_Z1kv' for "
+               "'sm_90a'\n"
+               "ptxas info    : Function properties for _Z1kv\n"
+               "    16 bytes stack frame, 12 bytes spill stores, 8 bytes "
+               "spill loads\n"
+               "ptxas info    : Used 255 registers, used 1 barriers, 3360 "
+               "bytes smem, 1104 bytes cmem[0]\n",
+               {"_Z1kv": {"registers": 255, "spills": 20,
+                          "static_smem": 3360}}),
+    "no_smem": ("ptxas info    : Compiling entry function '_Z1kv' for "
+                "'sm_90a'\n"
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads\n"
+                "ptxas info    : Used 28 registers\n",
+                {"_Z1kv": {"registers": 28, "spills": 0, "static_smem": 0}}),
+    "two_sources": ("== a.cu\nptxas info    : 0 bytes gmem\n"
+                    "ptxas info    : Compiling entry function '_Z1av' for "
+                    "'sm_90a'\n"
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads\n"
+                    "ptxas info    : Used 64 registers, used 1 barriers, "
+                    "3360 bytes smem\n"
+                    "== b.cu\n"
+                    "ptxas info    : Compiling entry function '_Z1bv' for "
+                    "'sm_90a'\n"
+                    "4 bytes stack frame, 4 bytes spill stores, 4 bytes "
+                    "spill loads\n"
+                    "ptxas info    : Used 40 registers, used 1 barriers, "
+                    "128 bytes smem\n",
+                    {"_Z1av": {"registers": 64, "spills": 0,
+                               "static_smem": 3360},
+                     "_Z1bv": {"registers": 40, "spills": 8,
+                               "static_smem": 128}}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PTXAS))
+def test_ptxas_report_reads_each_entry(case):
+    """_build.ptxas_report, the one reader of the build's -Xptxas -v log
+    (chip_smoke.py takes the force and compact kernels' registers, spills
+    and static shared memory from it): one entry per kernel, spill stores
+    and loads summed, a missing smem figure read as 0."""
+    text, want = _PTXAS[case]
+    assert _build.ptxas_report(text) == want
