@@ -6,14 +6,10 @@
 Phases, each printing JSON lines; any failed check exits non-zero:
   1. env      card name and power limit, torch / CUDA / nvcc versions, and
               the build of the hand-written kernels from csrc/
-  2. kernels  the full-rebuild kernels at the shapes of the 260,850-particle
-              3D dam break (and a jittered copy): held against their plain
-              PyTorch versions on the same inputs, timed with CUDA events,
-              with their bounds
-  3. parity   one FluidSim(method="pallas") step and three
+  2. parity   one FluidSim(method="pallas") step and three
               method="pallas_inc" steps on the card against the port's CPU
               path (2D n=600, 3D n=1,200), re-aligned by ids
-  4. run      200 steps of the 3D dam break (260,850 particles) and 20 of
+  3. run      200 steps of the 3D dam break (260,850 particles) and 20 of
               the 3D double dam break (1,197,770 particles) on "pallas";
               then the double dam break through FluidSim(method="auto"),
               which resolves to "pallas_inc", at bench.py's two operating
@@ -22,7 +18,7 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               overflow 0, finite, in bounds, ids a permutation, and launch
               counts that show every step went through every kernel; at
               each point one inc.step_planes call runs under CUDA's sync
-              debug mode "error", where a wait for the card fails the run
+              debug mode "error", where a wait for the card fails the run.
               At each point the same start also runs 200 steps through
               FluidSim(method="pallas_inc_cont"), the continuity tier:
               the same checks, its launch counts (force_step_cont and
@@ -30,18 +26,26 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               192), the carried rho's range, the position gap to the
               pallas_inc run, step_planes alone with rho seeded and age 1,
               and an age-0 and an age-1 step under sync debug mode
+  4. kernels  the full-rebuild kernels at the shapes of the 260,850-particle
+              3D dam break (and a jittered copy): held against their plain
+              PyTorch versions on the same inputs, timed with CUDA events,
+              with their bounds; occ_rowmax and gather, whose calls are
+              shorter than their launch path, also with their device time
+              and their library call's (torch.profiler; the kernel phases
+              come after the timed runs, which a profiler session slowed)
   5. kernels  the incremental path's kernels (and occ_rowmax, density) at
               the double dam break's shapes, on the planes of the evolved
               state and on a copy with numpy-seeded velocity noise (>= 1%
-              movers): against their plain versions, timed, with bounds;
+              movers): against their plain versions, timed, with bounds
+              (occ_rowmax and compact also with device times);
               force_step_cont in every form and switch, the 8-channel
               compact and consolidate_rho
   6. the kernels line, the card line, and the final ok line.
-Phase 3 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
+Phase 2 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
 then sum) on the card against the port's CPU path, with the carried rho,
 one FluidSim(method="gridded") step (2D n=600, 3D n=1,200) and the packed
 sweep's accel_mxu (a settled 3D scene of 1,080 particles) likewise.
-Phase 4 also runs config 2, the 2D dam break of 65,522 particles, for 200
+Phase 3 also runs config 2, the 2D dam break of 65,522 particles, for 200
 steps through FluidSim(method="gridded") (plain PyTorch: no kernel).
 Phase 5 also runs the packed-pair sweep on the evolved double dam break:
 accel_mxu with the launch counts zeroed, the kernel against its plain
@@ -49,12 +53,13 @@ version, its padding accounting (table_stats and the exact 27-cell pair
 ideal), its time and bound, and the rank-plane accel_planes (force) on the
 same positions, velocities and density, timed and held within 1e-6 of its
 largest acceleration.
-The redesigned kernels (force, force_step, force_step_cont, compact)
-carry in their kernel_time lines, and in the `redesigned` line, the
-registers, spills and shared memory of their main-path instantiation
-(from the build's -Xptxas -v report and the force kernels' own shared
-memory query) and their previous design's time (prev_ms, a constant).  Phase 5 also holds
-the plain force kernel against its plain version on both config-4 planes.
+The redesigned kernels (density, force, force_step, force_step_cont,
+gather, compact) carry in their kernel_time lines, and in the
+`redesigned` line, the registers, spills and shared memory of their
+main-path instantiation (from the build's -Xptxas -v report and the
+sweep kernels' own dynamic shared memory queries) and their previous
+design's time (prev_ms, a constant).  Phase 5 also holds the plain force
+kernel against its plain version on both config-4 planes.
 Imports nothing of JAX or of gpufluidsimulator_tpu.
 """
 
@@ -86,15 +91,20 @@ PACKED_SUPPORT_FLOPS = 22
 REPS = 20
 # the previous designs' times of the redesigned kernels, as PERF.md
 # section 6 records them (this script on an H100 80GB HBM3 at 700.00 W):
-# force at config 3, the others on the evolved config-4 planes
+# force and gather at config 3, the others on the evolved config-4 planes
 PREV_MS = {"force": 0.33824, "force_step": 1.87198,
-           "force_step_cont": 2.80023, "compact": 0.12058}
+           "force_step_cont": 2.80023, "compact": 0.12058,
+           "density": 0.46470, "gather": 0.02869}
+PREV_AT_CONFIG3 = ("force", "gather")
 # the instantiation each of them runs on the main paths (K = 8, 3D; the
-# continuity tier's default form, rate): a prefix of its mangled name
+# continuity tier's default form, rate; the step's 4 gathered channels
+# with diagnostics on): a prefix of its mangled name
 MAIN_INSTANCE = {"force": "_Z12force_kernelILi8ELi3ELb0ELi0EE",
                  "force_step": "_Z12force_kernelILi8ELi3ELb1ELi0EE",
                  "force_step_cont": "_Z12force_kernelILi8ELi3ELb1ELi1EE",
-                 "compact": "_Z14compact_kernel"}
+                 "compact": "_Z14compact_kernel",
+                 "density": "_Z14density_kernelILi8ELi3EE",
+                 "gather": "_Z13gather_kernelILi4EE"}
 WARM_EARLY = 100            # bench.py's operating points
 WARM_EVOLVED = 2000
 INC_STEPS = 200
@@ -133,6 +143,42 @@ def time_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# profiler sessions a device time may take: a session now and then records
+# no device activity at all (seen on the H100), so an empty one is retried
+PROFILE_TRIES = 3
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one call: the kernels, copies and fills it
+    launched, summed by torch.profiler over ``reps`` calls after two
+    warm-up calls.  For a call shorter than its launch path, time_ms
+    times the host."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    check(False, f"torch.profiler saw no device time in {PROFILE_TRIES} "
+                 f"sessions")
+
+
+# kernels whose calls are shorter than their launch path: timed on the
+# device too, with their library call, after the other cases of their
+# phase (the kernel phases run after the timed steps: a torch.profiler
+# session slowed the host-bound steps that came after it)
+DEVICE_TIMED = ("occ_rowmax", "gather", "compact")
+
+
 def rel_err(a, b) -> tuple:
     d = float((a.double() - b.double()).abs().max())
     scale = max(float(b.double().abs().max()), 1e-9)
@@ -157,16 +203,16 @@ def phase_env(torch, ft_build):
           "ptxas": ft_build.ptxas_report(ft_build.build_log["text"])})
 
 
-def redesign_facts(report: dict, force_smem: int) -> dict:
-    """registers, spills, smem_bytes (static + the force kernels' dynamic
-    ``force_smem``) and prev_ms of each redesigned kernel's main-path
-    instantiation."""
+def redesign_facts(report: dict, dyn_smem: dict) -> dict:
+    """registers, spills, smem_bytes (static + the dynamic ``dyn_smem`` of
+    the kernels that have one) and prev_ms of each redesigned kernel's
+    main-path instantiation."""
     facts = {}
     for kernel, prefix in MAIN_INSTANCE.items():
         hits = [v for k, v in report.items() if k.startswith(prefix)]
         check(len(hits) == 1, f"ptxas report: {len(hits)} entries for "
                               f"{kernel} ({prefix})")
-        dyn = force_smem if kernel.startswith("force") else 0
+        dyn = dyn_smem.get(kernel, 0)
         facts[kernel] = {"registers": hits[0]["registers"],
                          "spills": hits[0]["spills"],
                          "smem_bytes": hits[0]["static_smem"] + dyn,
@@ -211,6 +257,31 @@ def plane_touch(torch, planes, geom, region):
 
 TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "bytes", "flops")
+DEVICE_KEYS = ("device_ms", "library_device_ms")
+
+
+def timings(torch, name, c, shape, r, deferred) -> None:
+    """ms, plain_ms, library_ms of a case (CUDA events) and its bounds into
+    ``r``; a DEVICE_TIMED kernel's case goes on ``deferred`` for
+    device_times."""
+    r.update(ms=time_ms(torch, c["kernel"], REPS),
+             plain_ms=time_ms(torch, c["plain"], 3),
+             library_ms=(time_ms(torch, c["library"], REPS)
+                         if c["library"] is not None else None),
+             **bounds(c))
+    if name in DEVICE_TIMED:
+        deferred.append((name, shape, c, r))
+
+
+def device_times(torch, deferred) -> None:
+    """device_ms and library_device_ms (torch.profiler) of the deferred
+    cases, into their results; empties ``deferred``."""
+    while deferred:
+        name, shape, c, r = deferred.pop(0)
+        r.update(device_ms=device_ms(torch, c["kernel"], REPS),
+                 library_device_ms=device_ms(torch, c["library"], REPS))
+        emit({"phase": "device_time", "kernel": name, "shape": shape,
+              **{k: r[k] for k in ("ms", "library_ms") + DEVICE_KEYS}})
 
 
 def bounds(c) -> dict:
@@ -230,6 +301,7 @@ def phase_kernels(torch, ft, facts):
 
     dev = torch.device("cuda")
     results = {}
+    deferred = []
     for label, jitter in (("lattice", 0.0), ("jittered", 0.3)):
         params, state = ft.scenes.dam_break(n=262144, dim=3, jitter=jitter,
                                             seed=1, device=dev)
@@ -286,10 +358,11 @@ def phase_kernels(torch, ft, facts):
                 bytes=n * 4 * 4 + n * 4 + n * 4 * 4,
                 flops=0),
         }
-        # one PyTorch call computing the same function, where one exists
+        # one PyTorch call computing the same function, where one exists:
+        # the (N, C) rows at the clamped slots
         flat_stack = stack.reshape(stack.shape[0], -1)
         idx = torch.clamp_max(slot.to(torch.int64), kc - 1)
-        cases["gather"]["library"] = lambda: flat_stack[:, idx]
+        cases["gather"]["library"] = lambda: flat_stack.T[idx]
         slot_ok = slot[ok].to(torch.int64)
         vals_ok = fields[:, ok]
         chan = torch.arange(6, device=dev)[:, None]
@@ -321,17 +394,15 @@ def phase_kernels(torch, ft, facts):
             r = results.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if label == "lattice":
-                ms = time_ms(torch, c["kernel"], REPS)
-                plain_ms = time_ms(torch, c["plain"], 3)
-                lib_ms = (time_ms(torch, c["library"], REPS)
-                          if c["library"] is not None else None)
-                r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         **bounds(c))
+                shape = "dam_break n=262144 3D (260,850 particles)"
+                timings(torch, name, c, shape, r, deferred)
                 emit({"phase": "kernel_time", "kernel": name,
-                      "shape": "dam_break n=262144 3D (260,850 particles)",
-                      "valid_slots": valid, "probe_slots": probes,
+                      "shape": shape, "valid_slots": valid,
+                      "probe_slots": probes,
                       **{k: r[k] for k in TIME_KEYS},
-                      **facts.get(name, {})})
+                      **(facts.get(name, {}) if name in PREV_AT_CONFIG3
+                         else {})})
+        device_times(torch, deferred)
         del cases, planes, table, rho, acc, stack, prefilled
         torch.cuda.empty_cache()
     return results
@@ -793,6 +864,7 @@ def phase_inc_kernels(torch, ft, state, params, facts):
     touched[1:] |= inter.reshape(-1)
     starts_read = float(touched.sum())
     rows_b = geom.pz * geom.n_bx * geom.py * 4
+    deferred = []
     for label, fields6 in inputs:
         p6 = pm.halo_x(fields6)
         occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
@@ -945,19 +1017,16 @@ def phase_inc_kernels(torch, ft, state, params, facts):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if label != "evolved" or not c.get("timed", True):
                 continue
-            ms = time_ms(torch, c["kernel"], REPS)
-            plain_ms = time_ms(torch, c["plain"], 3)
-            lib_ms = (time_ms(torch, c["library"], REPS)
-                      if c["library"] is not None else None)
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     movers=m8_i if name.endswith("_rho") else m_i,
-                     **bounds(c))
-            emit({"phase": "kernel_time", "kernel": name,
-                  "shape": "double_dam_break n=1e6 3D (1,197,770 "
-                           "particles), evolved planes",
+            shape = ("double_dam_break n=1e6 3D (1,197,770 particles), "
+                     "evolved planes")
+            timings(torch, name, c, shape, r, deferred)
+            r["movers"] = m8_i if name.endswith("_rho") else m_i
+            emit({"phase": "kernel_time", "kernel": name, "shape": shape,
                   "valid_slots": valid, "probe_slots": probes,
                   **{k: r[k] for k in TIME_KEYS + ("movers",)},
-                  **(facts.get(name, {}) if name != "force" else {})})
+                  **(facts.get(name, {}) if name not in PREV_AT_CONFIG3
+                     else {})})
+        device_times(torch, deferred)
         del cases, new6, flagp, movers, arr, rho, flat7, p6
         del new6c, rhoc, flagc, chans8, movers8, arr8
         torch.cuda.empty_cache()
@@ -1179,11 +1248,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_env(torch, ft_build)
-    # the main paths' instantiations hold K = 8 ranks a cell
+    # the main paths' instantiations hold K = 8 ranks a cell, in 3D
+    lib = ft_build.library()
+    force_smem = lib.fk_force_smem(8)
     facts = redesign_facts(ft_build.ptxas_report(ft_build.build_log["text"]),
-                           ft_build.library().fk_force_smem(8))
+                           {"force": force_smem, "force_step": force_smem,
+                            "force_step_cont": force_smem,
+                            "density": lib.fk_density_smem(8)})
     emit({"phase": "redesigned", **facts})
-    results = phase_kernels(torch, ft, facts)
     phase_parity(torch, ft)
     phase_parity_inc(torch, ft)
     phase_parity_inc_cont(torch, ft)
@@ -1195,6 +1267,7 @@ def main() -> int:
     phase_gridded_run(torch, ft, ft_build)
     state, params, counts_inc, counts_cont = phase_inc_run(torch, ft,
                                                            ft_build)
+    results = phase_kernels(torch, ft, facts)
     results_inc = phase_inc_kernels(torch, ft, state, params, facts)
     packed, counts_packed = phase_packed_sweep(torch, ft, ft_build, state,
                                                params)
@@ -1202,23 +1275,23 @@ def main() -> int:
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+
+    def picked(r):
+        return {k: r[k] for k in keys + DEVICE_KEYS if k in r}
     for name, (src, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces}
         if name == "sweep_packed":
-            entry.update(launches=counts_packed[name],
-                         **{k: packed[k] for k in keys})
+            entry.update(launches=counts_packed[name], **picked(packed))
         elif name in SLICE1:
-            r = results[name]
-            entry.update(launches=counts[name], **{k: r[k] for k in keys})
+            entry.update(launches=counts[name], **picked(results[name]))
             entry["launches_pallas_inc"] = counts_inc[name]
             if name in results_inc:
-                entry["config4"] = {k: results_inc[name][k] for k in keys}
+                entry["config4"] = picked(results_inc[name])
         else:
-            r = results_inc[name]
             run_counts = counts_cont if name in CONT else counts_inc
             entry.update(launches=run_counts[name],
-                         **{k: r[k] for k in keys})
+                         **picked(results_inc[name]))
             if name not in CONT:
                 entry["launches_pallas_inc_cont"] = counts_cont[name]
         kernels.append(entry)

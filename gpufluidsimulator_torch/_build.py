@@ -39,8 +39,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fk_occ_rowmax": [_P, _P, _I, _L, _L, _P],
     "fk_place": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
-    "fk_density": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _F, _F,
-                   _P],
+    "fk_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+                   _F, _F, _P],
     "fk_force": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _L, _F, _F, _F, _F, _I, _F, _F, _F, _F, _I, _P],
     "fk_gather": [_P, _P, _P, _I, _I, _L, _P],
@@ -168,6 +168,8 @@ def library() -> ctypes.CDLL:
     lib.fk_error_string.restype = ctypes.c_char_p
     lib.fk_force_smem.argtypes = [ctypes.c_int]
     lib.fk_force_smem.restype = ctypes.c_int
+    lib.fk_density_smem.argtypes = [ctypes.c_int]
+    lib.fk_density_smem.restype = ctypes.c_int
     return lib
 
 

@@ -37,26 +37,17 @@
 // warp ran as long as its fullest cell, and 160 registers (continuity)
 // left 12 warps per SM.
 //
-// This design: a block of 256 threads owns a tile of 4 rows x 32 lanes of
-// one (z, x tile) plane, inside one 8-row block.  Warp w counts the valid
-// ranks of row w's lanes (bounded by the block's occ_q, stopping at the
-// first sentinel) and lays that row's queries out rank-major in shared
-// memory, so consecutive threads take neighbouring lanes of one rank and
-// the stores stay coalesced along the lanes; every slot that holds no
-// query is filled by a coalesced sweep.  A tile whose occ_q is 0, or that
-// holds no interior row, only fills.  For each neighbour plane dz (skipped
-// when its occ_s is 0) the block stages the 6 rows x 34 lanes around the
-// tile into shared memory, one thread per slot and all loads in flight at
-// once: ranks below occ_s, 8 a pass (K = 16 takes two), as two float4 per
-// slot, (x, y, z, pterm) and (vx, vy, vz, ir), rank-major so a warp reads
-// neighbouring cells without bank conflicts, with the EOS folded once at
-// staging; a cell's count stops at its first sentinel rank.  Each thread
-// then takes one query (256 at a time) and walks its 3 x 3 staged cells,
-// with 4 accumulators (5 with the continuity sum) and its query's 8
-// values.  The registers are capped at 64, so 4 blocks (32 warps) share an
-// SM with their 4 x 52 KB of staging.  Of the variants timed (one row of
-// 128 threads, two rows, 4 ranks a pass, 8 rows of 512 threads, no register
-// cap), this tile was the fastest; the register cap mattered most.
+// This design: the row tile of csrc/tile.cuh (a block of 256 threads per
+// 4 rows x 32 lanes, queries rank-major, one at a thread, candidates staged
+// per dz plane, bounded by occ_q / occ_s and each cell's first sentinel).
+// A staged slot holds two float4, (x, y, z, pterm) and (vx, vy, vz, ir),
+// with the EOS folded once at staging.  Each thread walks its query's 3 x 3
+// staged cells with 4 accumulators (5 with the continuity sum) and its
+// query's 8 values.  The registers are capped at 64, so 4 blocks (32
+// warps) share an SM with their 4 x 52 KB of staging.  Of the variants
+// timed (one row of 128 threads, two rows, 4 ranks a pass, 8 rows of 512
+// threads, no register cap), this tile was the fastest; the register cap
+// mattered most.
 //
 // Measured (chip_smoke.py, H100 80GB HBM3 at 700.00 W): force_step 0.717
 // ms and force_step_cont 0.808 ms on the evolved double dam break, force
@@ -65,21 +56,10 @@
 // slots share the time; the device stays latency-bound (see PERF.md).
 #include <atomic>
 
-#include "common.cuh"
+#include "tile.cuh"
 
 #define FK_MAX_OBS 4
-#define FK_THREADS 256          // threads a block; queries 256 at a time
 #define FK_MIN_BLOCKS 4         // blocks an SM: caps registers at 64
-#define FK_STAGE_RANKS 8        // ranks of a staged cell a pass holds
-#define FK_TILE_ROWS 4          // rows of a block's tile (divides 8 and py)
-#define FK_TILE_LANES 32        // lanes of each row that a block owns
-#define FK_TILES_PER_ROW (FK_LANES / FK_TILE_LANES)
-#define FK_STAGE_LANES (FK_TILE_LANES + 2)
-#define FK_STAGE_CELLS ((FK_TILE_ROWS + 2) * FK_STAGE_LANES)  // a dz plane
-static_assert(FK_THREADS % 32 == 0 && FK_THREADS / 32 >= FK_TILE_ROWS,
-              "a warp counts each row of the tile");
-static_assert(FK_ROWS_PER_BLOCK % FK_TILE_ROWS == 0,
-              "a tile lies in one 8-row block");
 
 struct FkEos {
     float rho0, rho_floor;     // rest density, 1e-3 * rest density
@@ -273,17 +253,6 @@ __device__ __forceinline__ void force_step_epilogue(
     flag[s] = moved ? 1.0f : 0.0f;
 }
 
-// The occupancy bounds of sph.accel_planes, read through their strides (in
-// elements): occ_q (nz|1, n_bx, n_by) bounds a block's query ranks and
-// tells an empty block; occ_s (..., 3) bounds the ranks staged from the
-// planes z-1, z, z+1 around it.
-struct FkOcc {
-    const int* q;
-    const int* s;
-    long long q0, q1, q2;
-    long long s0, s1, s2, s3;
-};
-
 // Every output slot of a slot that holds no query: 0, or on the fused
 // step the sentinel position, velocity 0, flag 0 (and rho 0).
 template <bool FUSE, int CONT>
@@ -307,123 +276,47 @@ __device__ __forceinline__ void fk_fill(float* out, float* flag,
 }
 
 // One block per tile of FK_TILE_ROWS rows x 32 lanes (see the note at the
-// top); the query, staging and pair loops are all bounded by the tile's
-// occ_q / occ_s and its cells' first sentinel ranks.  Dynamic shared
-// memory: 2 * SR * FK_STAGE_CELLS float4, the staged (x, y, z, pterm) and
-// (vx, vy, vz, ir) of one dz plane's pass of SR ranks, rank-major.
+// top and csrc/tile.cuh).  Dynamic shared memory: 2 * SR * FK_STAGE_CELLS
+// float4, the staged (x, y, z, pterm) and (vx, vy, vz, ir) of one dz
+// plane's pass of SR ranks, rank-major.
 template <int KMAX, int DIM, bool FUSE, int CONT>
 __global__ void __launch_bounds__(FK_THREADS, FK_MIN_BLOCKS)
 force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
              FkOcc occ, float* __restrict__ acc_out,
              float* __restrict__ flag_out, float* __restrict__ rho_out,
              FkGeom g, float h, FkEos e, FkStep st, FkCont ct) {
-    constexpr int SR = KMAX < FK_STAGE_RANKS ? KMAX : FK_STAGE_RANKS;
+    constexpr int SR = fk_stage_ranks<KMAX>();
     extern __shared__ float4 fk_stage[];
     float4* s_a = fk_stage;
     float4* s_b = fk_stage + SR * FK_STAGE_CELLS;
     __shared__ int s_cnt[FK_STAGE_CELLS];
-    __shared__ int s_n[FK_TILE_ROWS][FK_TILE_LANES];
-    __shared__ unsigned short s_q[FK_TILE_ROWS][KMAX * FK_TILE_LANES];
-    __shared__ int s_nrow[FK_TILE_ROWS];
+    __shared__ FkQueries<KMAX> sq;
 
     const long long cells = g.cells;
-    const int k = g.k;
-    const long long ch = (long long)k * cells;     // channel stride
+    const long long ch = (long long)g.k * cells;   // channel stride
     const float* X = fields;
     const float* Y = fields + ch;
     const float* Z = fields + 2 * ch;
     const float* VX = fields + 3 * ch;
     const float* VY = fields + 4 * ch;
     const float* VZ = fields + 5 * ch;
-    const int tid = threadIdx.x;
 
-    // the tile: rows row0 .. row0 + FK_TILE_ROWS - 1 (y0 ..), all in one
-    // 8-row block, lanes lane0 .. lane0 + 31
-    const long long row0 =
-        (long long)(blockIdx.x / FK_TILES_PER_ROW) * FK_TILE_ROWS;
-    const int lane0 = (int)(blockIdx.x % FK_TILES_PER_ROW) * FK_TILE_LANES;
-    const long long base = row0 * FK_LANES + lane0;  // the tile's first cell
-    const int y0 = (int)(row0 % g.py);
-    const long long zx = row0 / g.py;
-    const int xo = (int)(zx % g.n_bx);
-    const int z = (int)(zx / g.n_bx);
-    const bool plane_in = DIM == 3 ? (z >= 1 && z <= g.nz) : z == 0;
-    const bool tile_in = plane_in && y0 >= FK_ROWS_PER_BLOCK
-        && y0 < FK_ROWS_PER_BLOCK + g.ny;
-    int oq = 0;                                      // block-uniform
-    const int* os = occ.s;
-    if (tile_in) {
-        const int b = (y0 - FK_ROWS_PER_BLOCK) / FK_ROWS_PER_BLOCK;
-        const int zq = DIM == 3 ? z - 1 : 0;
-        oq = min(occ.q[zq * occ.q0 + xo * occ.q1 + b * occ.q2], k);
-        os = occ.s + zq * occ.s0 + xo * occ.s1 + b * occ.s2;
-    }
+    const FkTile t = fk_tile<DIM>(g, occ);
+    const int nq = fk_tile_queries<KMAX, false, DIM>(X, g, t, occ, sq);
+    fk_tile_fill<KMAX>(g, t, sq, [&](long long s) {
+        fk_fill<FUSE, CONT>(acc_out, flag_out, rho_out, s, ch);
+    });
 
-    // warp w < FK_TILE_ROWS: each lane's valid ranks in row w, and the
-    // row's queries rank-major
-    const int w = tid >> 5;
-    const int lt = tid & (FK_TILE_LANES - 1);
-    if (w < FK_TILE_ROWS) {
-        const int lane = lane0 + lt;
-        const long long cw = base + w * FK_LANES + lt;
-        int n = 0;
-        if (y0 + w < FK_ROWS_PER_BLOCK + g.ny && lane >= 1
-            && lane <= FK_TILE_X && xo * FK_TILE_X + lane - 1 < g.nx) {
-            // every rank's x in flight at once; n stops at the first
-            // sentinel rank
-            float xr[KMAX];
-#pragma unroll
-            for (int r = 0; r < KMAX; ++r)
-                xr[r] = r < oq ? X[r * cells + cw] : FK_SENTINEL;
-            bool run = true;
-#pragma unroll
-            for (int r = 0; r < KMAX; ++r) {
-                run = run && xr[r] < FK_HALF_SENTINEL;
-                n += run;
-            }
-        }
-        s_n[w][lt] = n;
-        const unsigned below = (1u << lt) - 1u;
-        int nq = 0;
-        for (int r = 0; r < oq; ++r) {
-            const unsigned mask = __ballot_sync(0xffffffffu, n > r);
-            if (mask == 0u) break;
-            if (n > r)
-                s_q[w][nq + __popc(mask & below)] =
-                    (unsigned short)((r << 5) | lt);
-            nq += __popc(mask);
-        }
-        if (lt == 0) s_nrow[w] = nq;
-    }
-    __syncthreads();
-    int nq = 0;
-#pragma unroll
-    for (int rr = 0; rr < FK_TILE_ROWS; ++rr) nq += s_nrow[rr];
-    for (int i = tid; i < FK_TILE_ROWS * k * FK_TILE_LANES; i += FK_THREADS) {
-        const int rr = i / (k * FK_TILE_LANES);
-        const int r = i / FK_TILE_LANES - rr * k;
-        const int l = i % FK_TILE_LANES;
-        if (r >= s_n[rr][l])
-            fk_fill<FUSE, CONT>(acc_out, flag_out, rho_out,
-                                r * cells + base + rr * FK_LANES + l, ch);
-    }
-
-    const long long zs = (long long)g.n_bx * g.py;   // rows per z plane
     for (int q0 = 0; q0 < nq; q0 += FK_THREADS) {
-        const int j = q0 + tid;
+        const int j = q0 + (int)threadIdx.x;
         const bool active = j < nq;
-        int l = 0, qr = 0;                  // the query's lane and tile row
-        long long s = 0;
+        FkQuery q{0, 0, 0};
         float qx = 0.0f, qy = 0.0f, qz = 0.0f;
         float qvx = 0.0f, qvy = 0.0f, qvz = 0.0f;
         float qp = 0.0f, qir = 0.0f, qdel = 0.0f;
         if (active) {
-            int jj = j;
-            while (qr < FK_TILE_ROWS - 1 && jj >= s_nrow[qr])
-                jj -= s_nrow[qr++];
-            const int code = s_q[qr][jj];
-            l = code & (FK_TILE_LANES - 1);
-            s = (code >> 5) * cells + base + qr * FK_LANES + l;
+            q = fk_tile_query<KMAX>(sq, j, t, cells);
+            const long long s = q.s;
             qx = X[s];
             qy = Y[s];
             qvx = VX[s];
@@ -437,109 +330,75 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
             if (CONT == FK_CONT_DELTA) qdel = rq * ct.kappa_over_mv;
         }
         float ax = 0.0f, ay = 0.0f, az = 0.0f, sv = 0.0f, sr = 0.0f;
-        for (int dz = (DIM == 3 ? -1 : 0); dz <= (DIM == 3 ? 1 : 0); ++dz) {
-            const int kz = min(os[(dz + 1) * occ.s3], k);
-            if (kz == 0) continue;                   // block-uniform
-            for (int r0 = 0; r0 < kz; r0 += SR) {
-                const int rn = min(SR, kz - r0);
-                __syncthreads();      // the last pass's readers are done
-                if (r0 == 0) {
-                    for (int i = tid; i < FK_STAGE_CELLS; i += FK_THREADS)
-                        s_cnt[i] = kz;
-                    __syncthreads();
-                }
-                // one thread per staged slot (rank-major, so a warp reads
-                // neighbouring lanes): every load in flight at once; a
-                // cell's count falls to its first sentinel rank
-                for (int i = tid; i < rn * FK_STAGE_CELLS; i += FK_THREADS) {
-                    const int r = i / FK_STAGE_CELLS;
-                    const int ci = i - r * FK_STAGE_CELLS;
-                    const int sl = lane0 - 1 + ci % FK_STAGE_LANES;
-                    if (sl < 0 || sl >= FK_LANES) {
-                        s_cnt[ci] = 0;
-                        continue;
-                    }
-                    const long long t = (r0 + r) * cells
-                        + (row0 + dz * zs + ci / FK_STAGE_LANES - 1)
-                        * FK_LANES + sl;
-                    const float x = X[t];
-                    const float yv = Y[t], zv = DIM == 3 ? Z[t] : 0.0f;
-                    const float vxv = VX[t], vyv = VY[t];
-                    const float vzv = DIM == 3 ? VZ[t] : 0.0f;
-                    const float rv = rho[t];
-                    if (!(x < FK_HALF_SENTINEL)) {
-                        atomicMin(&s_cnt[ci], r0 + r);
-                        continue;
-                    }
-                    float cp, cir;
-                    fk_eos_terms(rv, e, &cp, &cir);
-                    s_a[i] = make_float4(x, yv, zv, cp);
-                    s_b[i] = make_float4(vxv, vyv, vzv, cir);
-                }
-                __syncthreads();
-                if (!active) continue;
-                for (int dy = 0; dy < 3; ++dy) {
-                    for (int dx = 0; dx < 3; ++dx) {
-                        const int ci = (qr + dy) * FK_STAGE_LANES + l + dx;
-                        const int hi = min(s_cnt[ci], r0 + rn) - r0;
-                        for (int c2 = 0; c2 < hi; ++c2) {
-                            const float4 ca = s_a[c2 * FK_STAGE_CELLS + ci];
-                            const float4 cb = s_b[c2 * FK_STAGE_CELLS + ci];
-                            const float ddx = qx - ca.x;
-                            const float ddy = qy - ca.y;
-                            float r2 = ddx * ddx + ddy * ddy;
-                            float ddz = 0.0f;
-                            if (DIM == 3) {
-                                ddz = qz - ca.z;
-                                r2 = r2 + ddz * ddz;
-                            }
-                            const float inv_r = rsqrtf(fmaxf(r2, 1e-16f));
-                            const float r = r2 * inv_r;
-                            const float hr = fmaxf(h - r, 0.0f);
-                            float psum = qp + ca.w;
-                            if constexpr (CONT != FK_CONT_NONE) {
-                                float dot = (qvx - cb.x) * ddx
-                                            + (qvy - cb.y) * ddy;
-                                if (DIM == 3) dot = dot + (qvz - cb.z) * ddz;
-                                const float d2 = fmaxf(ct.h2 - r2, 0.0f);
-                                const float d4 = d2 * d2;
-                                const float t_dot = d4 * dot;
-                                if (ct.use_corr)
-                                    psum = psum - fminf(fmaxf(
-                                        ct.c_corr * t_dot, -ct.corr_cap),
-                                        ct.corr_cap);
-                                if (ct.use_alpha) {
-                                    const float rr = rsqrtf(r2 + ct.eps_h2);
-                                    psum = psum - ct.c_av * fminf(
-                                        dot * (rr * rr), 0.0f);
-                                }
-                                if constexpr (CONT == FK_CONT_SUM)
-                                    sr += d4 * d2;
-                                else if constexpr (CONT == FK_CONT_RELAX)
-                                    sr += d4 * (dot + ct.kappa_d2 * d2);
-                                else if constexpr (CONT == FK_CONT_DELTA)
-                                    sr += d4 * ((dot - ct.kappa)
-                                                + qdel * cb.w);
-                                else
-                                    sr += t_dot;
-                            }
-                            const float coef_p = psum * (hr * hr * inv_r);
-                            const float coef_v = hr * (qir * cb.w);
-                            sv += coef_v;
-                            ax += coef_p * ddx + coef_v * cb.x;
-                            ay += coef_p * ddy + coef_v * cb.y;
-                            if (DIM == 3) az += coef_p * ddz + coef_v * cb.z;
-                        }
-                    }
-                }
+        // a staged slot: its 7 loads in flight at once, the EOS folded
+        const auto stage = [&](int i, long long s) {
+            const float x = X[s];
+            const float yv = Y[s], zv = DIM == 3 ? Z[s] : 0.0f;
+            const float vxv = VX[s], vyv = VY[s];
+            const float vzv = DIM == 3 ? VZ[s] : 0.0f;
+            const float rv = rho[s];
+            if (!(x < FK_HALF_SENTINEL)) return false;
+            float cp, cir;
+            fk_eos_terms(rv, e, &cp, &cir);
+            s_a[i] = make_float4(x, yv, zv, cp);
+            s_b[i] = make_float4(vxv, vyv, vzv, cir);
+            return true;
+        };
+        const auto pair = [&](int c) {
+            const float4 ca = s_a[c];
+            const float4 cb = s_b[c];
+            const float ddx = qx - ca.x;
+            const float ddy = qy - ca.y;
+            float r2 = ddx * ddx + ddy * ddy;
+            float ddz = 0.0f;
+            if (DIM == 3) {
+                ddz = qz - ca.z;
+                r2 = r2 + ddz * ddz;
             }
-        }
+            const float inv_r = rsqrtf(fmaxf(r2, 1e-16f));
+            const float r = r2 * inv_r;
+            const float hr = fmaxf(h - r, 0.0f);
+            float psum = qp + ca.w;
+            if constexpr (CONT != FK_CONT_NONE) {
+                float dot = (qvx - cb.x) * ddx + (qvy - cb.y) * ddy;
+                if (DIM == 3) dot = dot + (qvz - cb.z) * ddz;
+                const float d2 = fmaxf(ct.h2 - r2, 0.0f);
+                const float d4 = d2 * d2;
+                const float t_dot = d4 * dot;
+                if (ct.use_corr)
+                    psum = psum - fminf(fmaxf(ct.c_corr * t_dot,
+                                              -ct.corr_cap), ct.corr_cap);
+                if (ct.use_alpha) {
+                    const float rr = rsqrtf(r2 + ct.eps_h2);
+                    psum = psum - ct.c_av * fminf(dot * (rr * rr), 0.0f);
+                }
+                if constexpr (CONT == FK_CONT_SUM)
+                    sr += d4 * d2;
+                else if constexpr (CONT == FK_CONT_RELAX)
+                    sr += d4 * (dot + ct.kappa_d2 * d2);
+                else if constexpr (CONT == FK_CONT_DELTA)
+                    sr += d4 * ((dot - ct.kappa) + qdel * cb.w);
+                else
+                    sr += t_dot;
+            }
+            const float coef_p = psum * (hr * hr * inv_r);
+            const float coef_v = hr * (qir * cb.w);
+            sv += coef_v;
+            ax += coef_p * ddx + coef_v * cb.x;
+            ay += coef_p * ddy + coef_v * cb.y;
+            if (DIM == 3) az += coef_p * ddz + coef_v * cb.z;
+        };
+        fk_tile_sweep<DIM, SR>(t, g, sq.kz, s_cnt, stage,
+                               [&](int r0, int rn) {
+            if (active) fk_tile_pairs(s_cnt, q.qr, q.l, r0, rn, pair);
+        });
         if (!active) continue;
+        const long long s = q.s;
         ax = ax - qvx * sv;
         ay = ay - qvy * sv;
         az = DIM == 3 ? az - qvz * sv : 0.0f;
         if constexpr (FUSE) {
-            const FkCell cc{lane0 + l, y0 + qr, xo, z};
+            const FkCell cc{t.lane0 + q.l, t.y0 + q.qr, t.xo, t.z};
             force_step_epilogue<DIM>(qx, qy, qz, qvx, qvy, qvz, ax, ay, az,
                                      st, cc, g, acc_out, flag_out, s, ch);
             if constexpr (CONT == FK_CONT_SUM) {
@@ -561,8 +420,7 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
 // Dynamic shared memory of one block: two float4 per staged slot of a pass
 template <int KMAX>
 constexpr int fk_stage_bytes() {
-    return 2 * (KMAX < FK_STAGE_RANKS ? KMAX : FK_STAGE_RANKS)
-           * FK_STAGE_CELLS * (int)sizeof(float4);
+    return 2 * fk_stage_ranks<KMAX>() * FK_STAGE_CELLS * (int)sizeof(float4);
 }
 
 // Past 48 KB with the static part, a block gets only the dynamic shared
@@ -629,14 +487,6 @@ static int force_entry(const float* fields, const float* rho,
 extern "C" int fk_force_smem(int k) {
     if (k < 1 || k > 16) return -1;
     return k <= 8 ? fk_stage_bytes<8>() : fk_stage_bytes<16>();
-}
-
-// occ_q, occ_s: the bounds' device pointers; ostr: their 7 strides in
-// elements (occ_q's 3, then occ_s's 4), a host array
-static FkOcc fk_occ_from(const int* occ_q, const int* occ_s,
-                         const long long* ostr) {
-    return FkOcc{occ_q, occ_s, ostr[0], ostr[1], ostr[2],
-                 ostr[3], ostr[4], ostr[5], ostr[6]};
 }
 
 // occ_q, occ_s: sph.accel_planes' bounds (int32, any strides); ostr: their

@@ -24,9 +24,9 @@ from ..ops import naive
 from .params import SimParams
 from .state import DeviceLike, State, resolve_device
 
-# method -> ROADMAP.md queue-1 item that ports it
+# method -> the ROADMAP.md queue-1 item that ports it, by its title
 UNPORTED = {
-    "native": "queue 1, item 6 (FluidSim method='native')",
+    "native": "queue 1, `FluidSim(method=\"native\")`",
 }
 
 

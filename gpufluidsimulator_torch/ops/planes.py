@@ -291,11 +291,11 @@ def occupancy_bounds(planes: torch.Tensor, params: SimParams,
 
     occ_q (nz|1, n_bx, n_by): max rank count of each interior 8-row block;
     occ_s (..., 3): the same over the block's y window, for the planes
-    z-1, z, z+1.  The force kernels (``sph.accel_planes``, ``accel_step``,
-    ``accel_step_cont``) skip a block whose occ_q is 0, bound its query
-    ranks by occ_q and the ranks they stage from plane z+dz by occ_s; every
-    rank loop still stops at a cell's first sentinel rank.  The density
-    kernel bounds its loops per cell and takes them for interface parity.
+    z-1, z, z+1.  The sweep kernels (``sph.density_planes``,
+    ``accel_planes``, ``accel_step``, ``accel_step_cont``) skip a block
+    whose occ_q is 0, bound its query ranks by occ_q and the ranks they
+    stage from plane z+dz by occ_s; every rank loop still stops at a cell's
+    first sentinel rank.
     """
     rowmax = occ_rowmax(planes[FIELD_X], geom)
     nb = geom.n_by

@@ -26,9 +26,8 @@ from . import planes as pm
 from . import route
 from .planes import LANES, PlaneGeom
 
-# The CUDA sweeps take up to this many ranks a cell (csrc/density.cu keeps
-# a cell's query ranks in registers; csrc/force.cu stages up to 16 ranks a
-# cell in shared memory)
+# The CUDA sweeps take up to this many ranks a cell (csrc/tile.cuh lays
+# out up to 16 query ranks a cell and stages them in two passes)
 MAX_KERNEL_K = 16
 
 
@@ -55,9 +54,8 @@ def _query_mask(x: torch.Tensor, geom: PlaneGeom) -> torch.Tensor:
 
 
 def _check_bounds(occ_q, occ_s, geom: PlaneGeom, device=None) -> None:
-    """The force kernels read the bounds through their strides, so they may
-    be strided views (density takes them for interface parity); with
-    ``device``, they must lie on it."""
+    """The sweep kernels read the bounds through their strides, so they may
+    be strided views; with ``device``, they must lie on it."""
     nzq = geom.nz if geom.dim == 3 else 1
     for name, t, shape in (("occ_q", occ_q, (nzq, geom.n_bx, geom.n_by)),
                            ("occ_s", occ_s, (nzq, geom.n_bx, geom.n_by, 3))):
@@ -72,8 +70,8 @@ def _check_bounds(occ_q, occ_s, geom: PlaneGeom, device=None) -> None:
 
 
 def _occ_args(occ_q, occ_s):
-    """The bounds as csrc/force.cu takes them: two pointers and a host
-    array of their 7 strides in elements."""
+    """The bounds as csrc/force.cu and csrc/density.cu take them: two
+    pointers and a host array of their 7 strides in elements."""
     strides = (ctypes.c_longlong * 7)(*occ_q.stride(), *occ_s.stride())
     return [_build.ptr(occ_q), _build.ptr(occ_s),
             ctypes.cast(strides, ctypes.c_void_p)]
@@ -116,18 +114,20 @@ def density_planes(pos_planes: torch.Tensor, occ_q: torch.Tensor,
                    geom: PlaneGeom) -> torch.Tensor:
     """Summation density on the planes: the CUDA kernel ``density`` on the
     card, the plain version for CPU tensors.  ``occ_q``/``occ_s`` are the
-    reference's rank-loop bounds; the kernel bounds its loops per cell
-    instead (ranks are dense, it stops at the first sentinel)."""
+    reference's rank-loop bounds (``planes.occupancy_bounds`` of the same
+    planes): the kernel skips an 8-row block whose ``occ_q`` is 0 and
+    bounds its rank loops by them, as the force kernels do."""
     if pos_planes.device.type == "cpu":
         return density_plain(pos_planes, params, geom)
     shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
     _build.check_tensor(pos_planes, "pos_planes", torch.float32,
                         (pm.N_POS_FIELDS,) + shape)
-    _check_bounds(occ_q, occ_s, geom)
+    _check_bounds(occ_q, occ_s, geom, pos_planes.device)
     rho = torch.empty(shape, dtype=torch.float32, device=pos_planes.device)
     c_poly6 = kernels.poly6_coef(params.h, params.dim) * params.particle_mass
     _build.launch("density", pos_planes,
-                  _build.ptr(pos_planes), _build.ptr(rho), *_geom_args(geom),
+                  _build.ptr(pos_planes), *_occ_args(occ_q, occ_s),
+                  _build.ptr(rho), *_geom_args(geom),
                   ctypes.c_float(params.h * params.h),
                   ctypes.c_float(c_poly6))
     return rho

@@ -9,9 +9,12 @@ Imports nothing of JAX, so it runs on a machine without it:
 Small scenes that reach the branches the config-3 and config-4 checks in
 ``chip_smoke.py`` do not: 2D, several x tiles (halo lanes), the Tait EOS,
 a cell capacity of 16 (the kernels' second rank width; two staging passes
-of the force kernels), particles inside both obstacles and through the
+of the sweep kernels), particles inside both obstacles and through the
 walls, forced drops, every form and switch of the continuity step, 27
-cells at full capacity above an empty 8-row block (occ_q 0), the
+cells at full capacity above an empty 8-row block (occ_q 0; for the
+density sweep also at K = 16, in 2D and across two x tiles, and with
+bounds zeroed on purpose), the gather's edges (3, 4 and 5 channels, a
+count that is not a multiple of 32, slots past the end), the
 compaction's edges (no flag, every flag, the first and last slot, 1 and
 8 channels, a partial last chunk, calls in a row), and the packed-pair
 sweep with a sentinel tail and a query tile whose three candidate
@@ -49,23 +52,34 @@ def cuda():
     return torch.device("cuda")
 
 
+def _full_cells(params, xs, zs=(0,)):
+    """K particles (numpy-seeded) in each cell of xs x (8, 9, 10) [x zs]:
+    y block 1 of the interior holds them, y block 0 (cells 0..7) none."""
+    rng = np.random.default_rng(4)
+    k, dim = params.cell_capacity, params.dim
+    corner = np.array([(x, y, z)[:dim] for x in xs for y in (8, 9, 10)
+                       for z in zs], dtype=np.float64)
+    pos = (corner[:, None, :]
+           + rng.uniform(0.05, 0.95, (corner.shape[0], k, dim))) \
+        * np.asarray(params.cells_axis) + np.asarray(params.bounds_min)
+    pos = pos.reshape(-1, dim).astype(np.float32)
+    return params, ft.make_state(pos, np.zeros_like(pos), device="cpu")
+
+
+def _multi_tile_params():
+    params, _ = ft.scenes.dam_break(n=900, dim=2, jitter=0.2, seed=5,
+                                    device="cpu")
+    return params.replace(bounds_min=(0.0, 0.0), bounds_max=(4.0, 1.0))
+
+
 def _scene(case):
     if case == FORCE_EDGE:
         # cells x, z in 2..4 and y in 8..10 (y block 1) hold K particles
         # each; y block 0 (cells 0..7) holds none
         params, _ = ft.scenes.double_dam_break(n=1200, dim=3, device="cpu")
-        rng = np.random.default_rng(4)
-        k = params.cell_capacity
-        corner = np.array([(x, y, z) for x in (2, 3, 4) for y in (8, 9, 10)
-                           for z in (2, 3, 4)], dtype=np.float64)
-        pos = (corner[:, None, :] + rng.uniform(0.05, 0.95, (27, k, 3))) \
-            * np.asarray(params.cells_axis) + np.asarray(params.bounds_min)
-        pos = pos.reshape(-1, 3).astype(np.float32)
-        return params, ft.make_state(pos, np.zeros_like(pos), device="cpu")
+        return _full_cells(params, (2, 3, 4), (2, 3, 4))
     if case == "multi_tile":
-        params, _ = ft.scenes.dam_break(n=900, dim=2, jitter=0.2, seed=5,
-                                        device="cpu")
-        params = params.replace(bounds_min=(0.0, 0.0), bounds_max=(4.0, 1.0))
+        params = _multi_tile_params()
         bx = 126 * params.cell
         state = ft.scenes.spawn_box(params, [bx - 0.2, 0.0],
                                     [bx + 0.2, 0.25], jitter=0.2, seed=5,
@@ -155,6 +169,95 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         pm.occ_rowmax(x.float().transpose(-1, -2).contiguous()
                       .transpose(-1, -2), geom)
+
+
+# the density sweep's edges: full cells above an empty 8-row block (occ_q 0
+# beside full cells) at K = 16 in 3D, in 2D, and in 2D across the boundary
+# of two x tiles (x cells 125..127; each tile stages the other's halo lane)
+DENSITY_EDGES = ["full_stencil_k16", "full_stencil_2d", "full_stencil_tiles"]
+
+
+def _density_edge(case):
+    if case == "full_stencil_k16":
+        params, _ = ft.scenes.double_dam_break(n=1200, dim=3, device="cpu")
+        return _full_cells(params.replace(cell_capacity=16), (2, 3, 4),
+                           (2, 3, 4))
+    if case == "full_stencil_2d":
+        params, _ = ft.scenes.dam_break(n=600, dim=2, device="cpu")
+        return _full_cells(params, (2, 3, 4))
+    params = _multi_tile_params()
+    assert pm.geometry(params).n_bx > 1
+    return _full_cells(params, (125, 126, 127))
+
+
+@pytest.mark.parametrize("case", DENSITY_EDGES)
+def test_density_edges_match_plain(cuda, case):
+    """The density sweep against its plain version (relative 1e-5) where
+    its tile meets its bounds: an 8-row block whose occ_q is 0 below 8-row
+    blocks of full cells, at K = 16, in 2D and across x tiles; one launch.
+    Then with the bounds zeroed on purpose: occ_q 0 everywhere skips every
+    block (no query, nothing staged: rho all 0), and occ_s 0 everywhere
+    stages nothing (every query sums no candidate, not even itself)."""
+    params, state = _density_edge(case)
+    geom = pm.geometry(params)
+    table = pm.build_planes(*(t.to(cuda) for t in
+                              (state.pos, state.vel, state.ids)),
+                            params, geom)
+    assert bool(table.ok.all())
+    pos_planes = table.planes[:pm.N_POS_FIELDS]
+    occ_q, occ_s = pm.occupancy_bounds(table.planes, params, geom)
+    assert int(occ_q[:, :, 0].max()) == 0
+    assert int(occ_q[:, :, 1].max()) == geom.k
+    before = dict(_build.launches)
+    rho = sph.density_planes(pos_planes, occ_q, occ_s, params, geom)
+    torch.cuda.synchronize()
+    launched = {k: _build.launches[k] - before[k] for k in before}
+    want = sph.density_plain(pos_planes, params, geom)
+    assert _rel(rho, want) <= 1e-5
+    assert torch.equal(rho == 0, want == 0)
+    assert launched == {k: int(k == "density") for k in before}
+    for zq, zs in ((torch.zeros_like(occ_q), occ_s),
+                   (occ_q, torch.zeros_like(occ_s))):
+        got = sph.density_planes(pos_planes, zq, zs, params, geom)
+        assert not got.any()
+
+
+@pytest.mark.parametrize("channels", [3, 4, 5])
+@pytest.mark.parametrize("case", ["random", "dropped"])
+def test_gather_matches_plain(cuda, case, channels):
+    """The per-particle gather against its plain version, exact: numpy
+    slots over the whole slot range (the first and the last slot, slots
+    past the end, 1,031 particles: not a multiple of 32), and the slots of
+    a binning with dropped particles (cell capacity 2); 3 and 4 channels
+    (the step's) and 5 (the generic instantiation); one launch a call."""
+    if case == "random":
+        params, _ = _scene("2d")
+        geom = pm.geometry(params)
+        m = geom.k * geom.cells
+        rng = np.random.default_rng(9)
+        slot = np.sort(np.concatenate([
+            rng.choice(m, 1024, replace=False), [0, m - 1],
+            m + rng.integers(0, 1000, 5)])).astype(np.int32)
+        slot = torch.from_numpy(slot).to(cuda)
+    else:
+        params, state = _scene("2d")
+        params = params.replace(cell_capacity=2)
+        geom = pm.geometry(params)
+        table = pm.build_planes(*(t.to(cuda) for t in
+                                  (state.pos, state.vel, state.ids)),
+                                params, geom)
+        assert not bool(table.ok.all())
+        slot = table.slot
+    shape = (channels, geom.k, geom.pz, geom.n_bx, geom.py, pm.LANES)
+    stack = torch.from_numpy(np.random.default_rng(3).normal(size=shape)
+                             .astype(np.float32)).to(cuda)
+    before = dict(_build.launches)
+    got = route.gather(stack, slot)
+    torch.cuda.synchronize()
+    launched = {k: _build.launches[k] - before[k] for k in before}
+    assert got.shape == (slot.shape[0], channels) and got.is_contiguous()
+    assert torch.equal(got, route.gather_plain(stack, slot))
+    assert launched == {k: int(k == "gather") for k in before}
 
 
 INC_CASES = ["2d", "3d_collide", "multi_tile", "3d_k16"]
