@@ -29,18 +29,26 @@ Phases, each printing JSON lines; any failed check exits non-zero:
   4. kernels  the full-rebuild kernels at the shapes of the 260,850-particle
               3D dam break (and a jittered copy): held against their plain
               PyTorch versions on the same inputs, timed with CUDA events,
-              with their bounds; occ_rowmax and gather, whose calls are
-              shorter than their launch path, also with their device time
-              and their library call's (torch.profiler; the kernel phases
-              come after the timed runs, which a profiler session slowed)
-  5. kernels  the incremental path's kernels (and occ_rowmax, density) at
-              the double dam break's shapes, on the planes of the evolved
-              state and on a copy with numpy-seeded velocity noise (>= 1%
-              movers): against their plain versions, timed, with bounds
-              (occ_rowmax and compact also with device times);
-              force_step_cont in every form and switch, the 8-channel
-              compact and consolidate_rho
-  6. the kernels line, the card line, and the final ok line.
+              with their bounds; occ_rowmax both alone (row maxima) and as
+              occupancy_bounds (the one occ_rowmax launch that also writes
+              occ_q and occ_s, the steps' call), exactly; occ_rowmax,
+              occupancy_bounds and gather, whose calls are shorter than
+              their launch path, also with their device time and their
+              library call's (torch.profiler; the kernel phases come after
+              the timed runs, which a profiler session slowed), occ_rowmax
+              and occupancy_bounds also cold (cold_ms: device time with L2
+              flushed before each call)
+  5. kernels  the incremental path's kernels (and occ_rowmax,
+              occupancy_bounds, density) at the double dam break's shapes,
+              on the planes of the evolved state and on a copy with
+              numpy-seeded velocity noise (>= 1% movers): against their
+              plain versions, timed, with bounds (occ_rowmax,
+              occupancy_bounds and compact also with device times, the
+              first two also cold); force_step_cont in every form and
+              switch, the 8-channel compact and consolidate_rho
+  6. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
+     numbers, the mode the steps launch, and holds the row-maxima-only
+     call's under row_maxima_only), the card line, and the final ok line.
 Phase 2 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
 then sum) on the card against the port's CPU path, with the carried rho,
 one FluidSim(method="gridded") step (2D n=600, 3D n=1,200) and the packed
@@ -54,7 +62,8 @@ ideal), its time and bound, and the rank-plane accel_planes (force) on the
 same positions, velocities and density, timed and held within 1e-6 of its
 largest acceleration.
 The redesigned kernels (density, force, force_step, force_step_cont,
-gather, compact) carry in their kernel_time lines, and in the
+gather, compact, consolidate, consolidate_rho, occ_rowmax) carry in their
+config-4 (force, gather: config-3) kernel_time lines, and in the
 `redesigned` line, the registers, spills and shared memory of their
 main-path instantiation (from the build's -Xptxas -v report and the
 sweep kernels' own dynamic shared memory queries) and their previous
@@ -94,7 +103,10 @@ REPS = 20
 # force and gather at config 3, the others on the evolved config-4 planes
 PREV_MS = {"force": 0.33824, "force_step": 1.87198,
            "force_step_cont": 2.80023, "compact": 0.12058,
-           "density": 0.46470, "gather": 0.02869}
+           "density": 0.46470, "gather": 0.02869, "consolidate": 0.40340,
+           "consolidate_rho": 0.47705,
+           # occ_rowmax: its device time (torch.profiler), 20 calls in a row
+           "occ_rowmax": 0.01028}
 PREV_AT_CONFIG3 = ("force", "gather")
 # the instantiation each of them runs on the main paths (K = 8, 3D; the
 # continuity tier's default form, rate; the step's 4 gathered channels
@@ -104,7 +116,10 @@ MAIN_INSTANCE = {"force": "_Z12force_kernelILi8ELi3ELb0ELi0EE",
                  "force_step_cont": "_Z12force_kernelILi8ELi3ELb1ELi1EE",
                  "compact": "_Z14compact_kernel",
                  "density": "_Z14density_kernelILi8ELi3EE",
-                 "gather": "_Z13gather_kernelILi4EE"}
+                 "gather": "_Z13gather_kernelILi4EE",
+                 "consolidate": "_Z18consolidate_kernelILb0EE",
+                 "consolidate_rho": "_Z18consolidate_kernelILb1EE",
+                 "occ_rowmax": "_Z17occ_rowmax_kernel"}
 WARM_EARLY = 100            # bench.py's operating points
 WARM_EVOLVED = 2000
 INC_STEPS = 200
@@ -148,11 +163,10 @@ def time_ms(torch, fn, reps: int) -> float:
 PROFILE_TRIES = 3
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Mean device time of one call: the kernels, copies and fills it
-    launched, summed by torch.profiler over ``reps`` calls after two
-    warm-up calls.  For a call shorter than its launch path, time_ms
-    times the host."""
+def kernel_us(torch, fn, reps: int) -> dict:
+    """Device time (us) and launches of each kernel, copy and fill that
+    ``reps`` calls of ``fn`` launched, by name, summed by torch.profiler
+    after two warm-up calls; an empty session is retried."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
@@ -163,20 +177,43 @@ def device_ms(torch, fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / reps
+        out = {e.key: (e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+        if out:
+            return out
     check(False, f"torch.profiler saw no device time in {PROFILE_TRIES} "
                  f"sessions")
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one call (kernel_us summed).  For a call
+    shorter than its launch path, time_ms times the host."""
+    return sum(us for us, _ in kernel_us(torch, fn, reps).values()) \
+        / 1e3 / reps
+
+
+def cold_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one call with L2 flushed before it: kernel_us
+    over ``reps`` pairs of a flush (a bitwise_not_ of a FLUSH_BYTES buffer)
+    and a call, less the kernels a flush alone launches."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    flush_keys = set(kernel_us(torch, buf.bitwise_not_, 3))
+    pairs = kernel_us(torch, lambda: (buf.bitwise_not_(), fn()), reps)
+    return sum(us for k, (us, _) in pairs.items()
+               if k not in flush_keys) / 1e3 / reps
 
 
 # kernels whose calls are shorter than their launch path: timed on the
 # device too, with their library call, after the other cases of their
 # phase (the kernel phases run after the timed steps: a torch.profiler
 # session slowed the host-bound steps that came after it)
-DEVICE_TIMED = ("occ_rowmax", "gather", "compact")
+DEVICE_TIMED = ("occ_rowmax", "occupancy_bounds", "gather", "compact")
+# of those, the calls whose input a step finds outside L2 while 20 calls
+# in a row find it inside: also timed cold (cold_ms)
+COLD_TIMED = ("occ_rowmax", "occupancy_bounds")
+FLUSH_BYTES = 128 << 20          # over twice the H100's 50 MB of L2
 
 
 def rel_err(a, b) -> tuple:
@@ -257,7 +294,7 @@ def plane_touch(torch, planes, geom, region):
 
 TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "bytes", "flops")
-DEVICE_KEYS = ("device_ms", "library_device_ms")
+DEVICE_KEYS = ("device_ms", "library_device_ms", "cold_ms")
 
 
 def timings(torch, name, c, shape, r, deferred) -> None:
@@ -274,14 +311,19 @@ def timings(torch, name, c, shape, r, deferred) -> None:
 
 
 def device_times(torch, deferred) -> None:
-    """device_ms and library_device_ms (torch.profiler) of the deferred
-    cases, into their results; empties ``deferred``."""
+    """device_ms, library_device_ms and, for COLD_TIMED, cold_ms
+    (torch.profiler) of the deferred cases, into their results; empties
+    ``deferred``."""
     while deferred:
         name, shape, c, r = deferred.pop(0)
         r.update(device_ms=device_ms(torch, c["kernel"], REPS),
-                 library_device_ms=device_ms(torch, c["library"], REPS))
+                 library_device_ms=(device_ms(torch, c["library"], REPS)
+                                    if c["library"] is not None else None))
+        if name in COLD_TIMED:
+            r["cold_ms"] = cold_ms(torch, c["kernel"], REPS)
         emit({"phase": "device_time", "kernel": name, "shape": shape,
-              **{k: r[k] for k in ("ms", "library_ms") + DEVICE_KEYS}})
+              **{k: r[k] for k in ("ms", "library_ms") + DEVICE_KEYS
+                 if k in r}})
 
 
 def bounds(c) -> dict:
@@ -322,6 +364,7 @@ def phase_kernels(torch, ft, facts):
         valid, probes_all = plane_touch(torch, planes, geom, "all")
         _, probes = plane_touch(torch, planes, geom, "sweep")
         rows_b = geom.pz * geom.n_bx * geom.py * 4
+        bounds_b = 4 * geom.nz * geom.n_bx * geom.n_by * 4
         cases = {
             "occ_rowmax": dict(
                 kernel=lambda: pm.occ_rowmax(planes[0], geom),
@@ -330,6 +373,13 @@ def phase_kernels(torch, ft, facts):
                     planes[0] < pm.SENTINEL * 0.5, dim=0,
                     dtype=torch.int32), dim=-1),
                 tol=0.0, exact=True, bytes=probes_all * 4 + rows_b, flops=0),
+            # the step's call: one occ_rowmax launch writes occ_q, occ_s
+            "occupancy_bounds": dict(
+                kernel=lambda: pm.occupancy_bounds(planes, params, geom),
+                plain=lambda: pm.occupancy_bounds_plain(planes, params,
+                                                        geom),
+                library=None, tol=0.0, exact=True,
+                bytes=probes_all * 4 + bounds_b, flops=0),
             "place": dict(
                 kernel=lambda: route.place(fields, slot, ok, geom, 3),
                 plain=lambda: route.place_plain(fields, slot, ok, geom, 3),
@@ -374,18 +424,21 @@ def phase_kernels(torch, ft, facts):
             (chan, slot_ok[None, :]), vals_ok)
 
         for name, c in cases.items():
-            got = c["kernel"]()
-            want = c["plain"]()
+            got, want = c["kernel"](), c["plain"]()
             torch.cuda.synchronize()
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"{name} ({label}): shape/dtype {tuple(got.shape)} "
-                  f"{got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      f"{name} ({label}): shape/dtype {tuple(a.shape)} "
+                      f"{a.dtype} vs plain {tuple(b.shape)} {b.dtype}")
             if c["exact"]:
-                err = rel = float((got.double() - want.double()).abs().max())
-                check(torch.equal(got, want),
+                err = rel = max(float((a.double() - b.double()).abs().max())
+                                for a, b in zip(got, want))
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
                       f"{name} ({label}) differs from its plain version")
             else:
-                err, rel = rel_err(got, want)
+                err, rel = rel_err(got[0], want[0])
                 check(np.isfinite(err) and rel <= c["tol"],
                       f"{name} ({label}) rel err {rel} > {c['tol']}")
             emit({"phase": "kernel_check", "kernel": name, "input": label,
@@ -399,7 +452,7 @@ def phase_kernels(torch, ft, facts):
                 emit({"phase": "kernel_time", "kernel": name,
                       "shape": shape, "valid_slots": valid,
                       "probe_slots": probes,
-                      **{k: r[k] for k in TIME_KEYS},
+                      **{k: r[k] for k in TIME_KEYS if k in r},
                       **(facts.get(name, {}) if name in PREV_AT_CONFIG3
                          else {})})
         device_times(torch, deferred)
@@ -864,6 +917,7 @@ def phase_inc_kernels(torch, ft, state, params, facts):
     touched[1:] |= inter.reshape(-1)
     starts_read = float(touched.sum())
     rows_b = geom.pz * geom.n_bx * geom.py * 4
+    bounds_b = 4 * geom.nz * geom.n_bx * geom.n_by * 4
     deferred = []
     for label, fields6 in inputs:
         p6 = pm.halo_x(fields6)
@@ -908,6 +962,11 @@ def phase_inc_kernels(torch, ft, state, params, facts):
                     dim=-1),
                 bytes=probes_all * 4 + rows_b,
                 flops=0),
+            # the step's call: one occ_rowmax launch writes occ_q, occ_s
+            "occupancy_bounds": dict(
+                kernel=lambda: pm.occupancy_bounds(p6, params, geom),
+                plain=lambda: pm.occupancy_bounds_plain(p6, params, geom),
+                library=None, bytes=probes_all * 4 + bounds_b, flops=0),
             "density": dict(
                 kernel=lambda: sph.density_planes(p6[:3], occ_q, occ_s,
                                                   params, geom),
@@ -1023,7 +1082,7 @@ def phase_inc_kernels(torch, ft, state, params, facts):
             r["movers"] = m8_i if name.endswith("_rho") else m_i
             emit({"phase": "kernel_time", "kernel": name, "shape": shape,
                   "valid_slots": valid, "probe_slots": probes,
-                  **{k: r[k] for k in TIME_KEYS + ("movers",)},
+                  **{k: r[k] for k in TIME_KEYS + ("movers",) if k in r},
                   **(facts.get(name, {}) if name not in PREV_AT_CONFIG3
                      else {})})
         device_times(torch, deferred)
@@ -1283,6 +1342,15 @@ def main() -> int:
                  "replaces": replaces}
         if name == "sweep_packed":
             entry.update(launches=counts_packed[name], **picked(packed))
+        elif name == "occ_rowmax":
+            # the steps launch it through occupancy_bounds: its numbers
+            # lead, the row-maxima-only call's stand beside them
+            entry.update(launches=counts[name],
+                         **picked(results["occupancy_bounds"]),
+                         launches_pallas_inc=counts_inc[name],
+                         config4=picked(results_inc["occupancy_bounds"]),
+                         row_maxima_only=picked(results[name]),
+                         row_maxima_only_config4=picked(results_inc[name]))
         elif name in SLICE1:
             entry.update(launches=counts[name], **picked(results[name]))
             entry["launches_pallas_inc"] = counts_inc[name]

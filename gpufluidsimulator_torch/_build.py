@@ -37,7 +37,7 @@ _F = ctypes.c_float
 
 # C entry point -> argument types (the trailing stream included)
 SIGNATURES = {
-    "fk_occ_rowmax": [_P, _P, _I, _L, _L, _P],
+    "fk_occ_rowmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P],
     "fk_place": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
     "fk_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
                    _F, _F, _P],

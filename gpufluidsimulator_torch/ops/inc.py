@@ -292,11 +292,19 @@ def consolidate(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
     _build.check_tensor(idp, "idp", torch.float32, shape)
     _build.check_tensor(flagp, "flagp", torch.float32, shape)
     cap = arr.movers.shape[1]
+    if 8 * geom.k * geom.cells >= 2 ** 31 or 8 * cap >= 2 ** 31:
+        raise ValueError(f"the CUDA consolidate indexes with 32 bits: 8 * K "
+                         f"* cells = {8 * geom.k * geom.cells} and 8 * m_cap "
+                         f"= {8 * cap} must stay below 2^31")
     _build.check_tensor(arr.movers, "movers", torch.float32,
                         (7 if rhop is None else 8, cap))
     _build.check_tensor(arr.order, "order", torch.int64, (cap,))
     _build.check_tensor(arr.starts, "starts", torch.int32,
                         (geom.cells + 1,))
+    for t in (new6, idp, flagp, arr.starts, rhop):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the CUDA consolidate reads float4 rows: the "
+                             "planes and starts must be 16-byte aligned")
     out6 = torch.empty_like(new6)
     oid = torch.empty_like(idp)
     dropped = torch.zeros((), dtype=torch.int32, device=new6.device)

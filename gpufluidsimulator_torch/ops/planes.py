@@ -12,8 +12,9 @@ reference's logical layout so its tensors compare 1:1 with the JAX ones:
   * ghost cells: one plane in z, 8 rows in y, lane 0 / the trailing lanes in
     x, so the 3^d stencil of an interior cell never leaves the array.
 
-``occ_rowmax`` holds the first hand-written kernel of the port
-(``csrc/occ_rowmax.cu``) beside its plain PyTorch version.
+``occ_rowmax`` and ``occupancy_bounds`` hold the first hand-written kernel
+of the port (``csrc/occ_rowmax.cu``: the row maxima, or in one launch the
+bounds pooled from them) beside their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -268,36 +269,45 @@ def occ_rowmax_plain(planes_x: torch.Tensor) -> torch.Tensor:
     return torch.sum(lead, dim=0, dtype=torch.int32).amax(dim=-1)
 
 
+def _check_x(planes_x: torch.Tensor, geom: PlaneGeom) -> None:
+    shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
+    _build.check_tensor(planes_x, "planes_x", torch.float32, shape)
+    if planes_x.data_ptr() % 16:
+        raise ValueError("planes_x must be 16-byte aligned")
+    if geom.k * geom.cells >= 2 ** 31:
+        raise ValueError(f"the CUDA occ_rowmax indexes with 32 bits: K * "
+                         f"cells = {geom.k * geom.cells} is too large")
+
+
+def _occ_launch(planes_x, rowmax, occ_q, occ_s, geom: PlaneGeom) -> None:
+    null = ctypes.c_void_p(None)
+    _build.launch("occ_rowmax", planes_x, _build.ptr(planes_x),
+                  null if rowmax is None else _build.ptr(rowmax),
+                  null if occ_q is None else _build.ptr(occ_q),
+                  null if occ_s is None else _build.ptr(occ_s),
+                  ctypes.c_int(geom.dim), ctypes.c_int(geom.k),
+                  ctypes.c_int(geom.nz), ctypes.c_int(geom.n_bx),
+                  ctypes.c_int(geom.py), ctypes.c_int(geom.pz),
+                  ctypes.c_int(geom.n_by), ctypes.c_longlong(geom.cells))
+
+
 def occ_rowmax(planes_x: torch.Tensor, geom: PlaneGeom) -> torch.Tensor:
     """Per-row maximum occupancy; the CUDA kernel ``occ_rowmax`` on the
     card, the plain version for CPU tensors."""
     if planes_x.device.type == "cpu":
         return occ_rowmax_plain(planes_x)
-    shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
-    _build.check_tensor(planes_x, "planes_x", torch.float32, shape)
-    rows = geom.pz * geom.n_bx * geom.py
+    _check_x(planes_x, geom)
     out = torch.empty((geom.pz, geom.n_bx, geom.py), dtype=torch.int32,
                       device=planes_x.device)
-    _build.launch("occ_rowmax", planes_x,
-                  _build.ptr(planes_x), _build.ptr(out),
-                  ctypes.c_int(geom.k), ctypes.c_longlong(rows),
-                  ctypes.c_longlong(geom.cells))
+    _occ_launch(planes_x, out, None, None, geom)
     return out
 
 
-def occupancy_bounds(planes: torch.Tensor, params: SimParams,
-                     geom: PlaneGeom):
-    """Per-block occupancy bounds (occ_q, occ_s) from the halo'd planes.
-
-    occ_q (nz|1, n_bx, n_by): max rank count of each interior 8-row block;
-    occ_s (..., 3): the same over the block's y window, for the planes
-    z-1, z, z+1.  The sweep kernels (``sph.density_planes``,
-    ``accel_planes``, ``accel_step``, ``accel_step_cont``) skip a block
-    whose occ_q is 0, bound its query ranks by occ_q and the ranks they
-    stage from plane z+dz by occ_s; every rank loop still stops at a cell's
-    first sentinel rank.
-    """
-    rowmax = occ_rowmax(planes[FIELD_X], geom)
+def occupancy_bounds_plain(planes: torch.Tensor, params: SimParams,
+                           geom: PlaneGeom):
+    """``occupancy_bounds`` in plain PyTorch: ``occ_rowmax_plain``, pooled
+    by 8-row block, its edge rows and the neighbouring z planes."""
+    rowmax = occ_rowmax_plain(planes[FIELD_X])
     nb = geom.n_by
     blk = rowmax.reshape(geom.pz, geom.n_bx, -1, ROWS_PER_BLOCK)
     blkmax = torch.amax(blk, dim=-1)                      # (pz, n_bx, nby+2)
@@ -318,4 +328,31 @@ def occupancy_bounds(planes: torch.Tensor, params: SimParams,
         occ_s = occ_s[1:geom.nz + 1]
     else:
         occ_s = torch.stack([slab * 0, slab, slab * 0], dim=-1)
+    return occ_q, occ_s
+
+
+def occupancy_bounds(planes: torch.Tensor, params: SimParams,
+                     geom: PlaneGeom):
+    """Per-block occupancy bounds (occ_q, occ_s) from the halo'd planes.
+
+    occ_q (nz|1, n_bx, n_by): max rank count of each interior 8-row block;
+    occ_s (..., 3): the same over the block's y window, for the planes
+    z-1, z, z+1.  The sweep kernels (``sph.density_planes``,
+    ``accel_planes``, ``accel_step``, ``accel_step_cont``) skip a block
+    whose occ_q is 0, bound its query ranks by occ_q and the ranks they
+    stage from plane z+dz by occ_s; every rank loop still stops at a cell's
+    first sentinel rank.  On the card one launch of the kernel
+    ``occ_rowmax`` writes both (contiguous views of one allocation); for
+    CPU tensors ``occupancy_bounds_plain``.
+    """
+    if planes.device.type == "cpu":
+        return occupancy_bounds_plain(planes, params, geom)
+    planes_x = planes[FIELD_X]
+    _check_x(planes_x, geom)
+    nzq = geom.nz if params.dim == 3 else 1
+    nq = nzq * geom.n_bx * geom.n_by
+    buf = torch.empty(4 * nq, dtype=torch.int32, device=planes.device)
+    occ_q = buf[:nq].view(nzq, geom.n_bx, geom.n_by)
+    occ_s = buf[nq:].view(nzq, geom.n_bx, geom.n_by, 3)
+    _occ_launch(planes_x, None, occ_q, occ_s, geom)
     return occ_q, occ_s

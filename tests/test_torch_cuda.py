@@ -324,11 +324,64 @@ def _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom):
     return int(differ.sum())
 
 
+def _plant_kept_after_flagged(new6, flagp, geom):
+    """Flag every valid rank of a cell holding two or more, but rank 1: the
+    cell's only kept rank then comes after a flagged one (its flagged
+    particles, which did not leave the cell, arrive back into it).
+    Returns the cell."""
+    valid = (new6[0] < pm.SENTINEL * 0.5) \
+        & pm.interior_mask(geom, new6.device)[None]
+    flat_v = valid.reshape(geom.k, -1)
+    c = int(torch.nonzero(flat_v.sum(0) >= 2)[0, 0])
+    f = flagp.reshape(geom.k, -1)
+    f[:, c] = flat_v[:, c].to(f.dtype)
+    f[1, c] = 0.0
+    return c
+
+
+def _has_empty_warp(new6, arr, geom):
+    """Whether some row of 128 cells (one warp of consolidate), one of them
+    interior, holds no particle and receives no arrival."""
+    held = (new6[0, 0] < pm.SENTINEL * 0.5).reshape(-1, pm.LANES).any(1)
+    arrive = (arr.starts[1:] > arr.starts[:-1]).reshape(-1, pm.LANES).any(1)
+    inter = pm.interior_mask(geom, new6.device).reshape(-1, pm.LANES).any(1)
+    return bool((inter & ~held & ~arrive).any())
+
+
+def _check_consolidate(new6, idp, flagp, movers8, m, rho, params, geom):
+    """consolidate (the first 7 mover channels) and consolidate_rho (all 8,
+    rho the carried density) against their plain versions, exact; the 7
+    shared outputs of the two kernels equal.  Returns both results."""
+    arr8 = inc.arrival_planes(movers8, m, params, geom)
+    arr7 = arr8._replace(movers=movers8[:7].contiguous())
+    got = inc.consolidate(new6, idp, flagp, arr7, geom)
+    want = inc.consolidate_plain(new6, idp, flagp, arr7, geom)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    got8 = inc.consolidate(new6, idp, flagp, arr8, geom, rhop=rho)
+    want8 = inc.consolidate_plain(new6, idp, flagp, arr8, geom, rho)
+    assert len(got8) == 4
+    for a, b in zip(got8, want8):
+        assert torch.equal(a, b)
+    for a, b in zip(got, (got8[0], got8[1], got8[3])):
+        assert torch.equal(a, b)
+    return got, got8, arr8
+
+
+# the cases with an interior row that holds no particle and receives none
+# (the 3D scenes' 12-cell rows all hold some)
+EMPTY_WARP_CASES = ("2d", "multi_tile", FORCE_EDGE)
+
+
 @pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE])
 def test_inc_kernels_match_plain(cuda, case):
-    """force_step, compact and consolidate against their plain versions on
-    the same inputs, and one launch of each wrapper a call (compact: one
-    memset and one single-pass kernel)."""
+    """force_step, compact, consolidate and consolidate_rho against their
+    plain versions on the same inputs, and one launch of each wrapper a
+    call (compact: one memset and one single-pass kernel).  The flags are
+    then changed so that one cell's only kept rank comes after a flagged
+    one; the movers carry the density as an 8th channel (the carried rho
+    of consolidate_rho); in EMPTY_WARP_CASES a whole warp's cells are
+    empty."""
     params, state = _inc_scene(case)
     geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
     if case == "multi_tile":
@@ -348,37 +401,98 @@ def test_inc_kernels_match_plain(cuda, case):
     small_p = inc.compact_plain([*new6, s.idp], flagp, 5)
     assert torch.equal(small[0], small_p[0]) and int(small[1]) == 5
 
-    arr = inc.arrival_planes(movers, m, params, geom)
-    got = inc.consolidate(new6, s.idp, flagp, arr, geom)
-    want = inc.consolidate_plain(new6, s.idp, flagp, arr, geom)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    cell = _plant_kept_after_flagged(new6, flagp, geom)
+    movers8, m8, _ = inc.compact([*new6, s.idp, rho], flagp, m_cap)
+    assert torch.equal(movers8, inc.compact_plain([*new6, s.idp, rho],
+                                                  flagp, m_cap)[0])
+    got, _, arr8 = _check_consolidate(new6, s.idp, flagp, movers8, m8, rho,
+                                      params, geom)
+    assert float(got[1].reshape(geom.k, -1)[0, cell]) \
+        == float(s.idp.reshape(geom.k, -1)[1, cell])
+    if case in EMPTY_WARP_CASES:
+        assert _has_empty_warp(new6, arr8, geom)
     torch.cuda.synchronize()
     # occ_rowmax and density once each in _inc_inputs, place in to_planes
     want = dict.fromkeys(before, 0)
-    want.update(force_step=1, compact=2, consolidate=1)
+    want.update(force_step=1, compact=3, consolidate=1, consolidate_rho=1)
     assert {k: _build.launches[k] - before[k] for k in before} == want
 
 
-def test_consolidate_forced_drops_match_plain(cuda):
-    """Cell capacity 2 and twelve movers sent into one cell: drops from
-    both arrivals beyond ARRIVAL_K and ranks beyond K, equal to the plain
-    version's."""
-    params, state = _inc_scene("2d")
-    params = params.replace(cell_capacity=2)
+@pytest.mark.parametrize("case,capacity", [("2d", 2), ("multi_tile", 2),
+                                           ("3d_k16", 16)])
+def test_consolidate_forced_drops_match_plain(cuda, case, capacity):
+    """Twelve movers sent into one cell: drops from arrivals beyond
+    ARRIVAL_K and, at cell capacity 2, from ranks beyond K, equal to the
+    plain version's, in both forms (the movers carry the density as the
+    carried rho); 2D, across x tiles, and at K = 16 in 3D; one cell's only
+    kept rank after a flagged one."""
+    params, state = _inc_scene(case)
+    params = params.replace(cell_capacity=capacity)
     geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
     new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
-    movers, m, _ = inc.compact([*new6, s.idp], flagp,
-                               inc.mover_capacity(state.n))
+    _plant_kept_after_flagged(new6, flagp, geom)
+    movers8, m, _ = inc.compact([*new6, s.idp, rho], flagp,
+                                inc.mover_capacity(state.n))
     assert int(m) > 12
-    movers[:params.dim, :12] = torch.tensor(
+    movers8[:params.dim, :12] = torch.tensor(
         [0.5 * params.cell] * params.dim, device=cuda)[:, None]
-    arr = inc.arrival_planes(movers, m, params, geom)
-    got = inc.consolidate(new6, s.idp, flagp, arr, geom)
-    want = inc.consolidate_plain(new6, s.idp, flagp, arr, geom)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert int(got[2]) >= 12 - 2
+    got, got8, _ = _check_consolidate(new6, s.idp, flagp, movers8, m, rho,
+                                      params, geom)
+    assert int(got[2]) == int(got8[3]) >= 12 - min(capacity,
+                                                   inc.ARRIVAL_K)
+
+
+# occupancy bounds: the solver scenes, and numpy-seeded sparse planes with
+# a cell at K in the ghost rows y0-1 / y0+8 and in the z-ghost planes
+OCC_CASES = ["2d", "3d", "multi_tile", "3d_k16", FORCE_EDGE, "sparse_2d",
+             "sparse_3d", "sparse_3d_k16"]
+
+
+def _occ_planes(case, device):
+    if not case.startswith("sparse"):
+        params, state = _scene(case)
+        geom = pm.geometry(params)
+        planes = pm.build_planes(*(t.to(device) for t in
+                                   (state.pos, state.vel, state.ids)),
+                                 params, geom).planes
+        return params, geom, planes
+    params, _ = _scene("2d" if case == "sparse_2d" else "3d")
+    if case.endswith("k16"):
+        params = params.replace(cell_capacity=16)
+    geom = pm.geometry(params)
+    k, rb = geom.k, pm.ROWS_PER_BLOCK
+    rng = np.random.default_rng(6)
+    shape = (geom.pz, geom.n_bx, geom.py, pm.LANES)
+    counts = np.where(rng.random(shape) < 0.02,
+                      rng.integers(1, k // 2 + 1, shape), 0)
+    z_in = 1 if geom.dim == 3 else 0
+    counts[z_in, 0, rb - 1, 5] = k
+    counts[z_in, -1, (geom.n_by + 1) * rb, 60] = k
+    if geom.dim == 3:
+        counts[0, 0, rb + 3, 7] = k
+        counts[-1, 0, 2 * rb + 2, 9] = k
+    x = np.where(np.arange(k).reshape(k, 1, 1, 1, 1) < counts[None],
+                 np.float32(0.5), np.float32(pm.SENTINEL))
+    return params, geom, torch.from_numpy(x[None]).to(device)
+
+
+@pytest.mark.parametrize("case", OCC_CASES)
+def test_occupancy_bounds_match_plain(cuda, case):
+    """occ_rowmax and occupancy_bounds on the card equal their plain
+    versions, and occupancy_bounds makes one occ_rowmax launch a call."""
+    params, geom, planes = _occ_planes(case, cuda)
+    before = dict(_build.launches)
+    q, s_ = pm.occupancy_bounds(planes, params, geom)
+    torch.cuda.synchronize()
+    assert {k: _build.launches[k] - before[k] for k in before} == \
+        {k: int(k == "occ_rowmax") for k in before}
+    want_q, want_s = pm.occupancy_bounds_plain(planes, params, geom)
+    assert q.is_contiguous() and s_.is_contiguous()
+    assert torch.equal(q, want_q) and torch.equal(s_, want_s)
+    assert torch.equal(pm.occ_rowmax(planes[pm.FIELD_X], geom),
+                       pm.occ_rowmax_plain(planes[pm.FIELD_X]))
+    if case.startswith("sparse"):
+        assert int(s_.max()) == geom.k and int(q.max()) < geom.k
 
 
 def test_rank_loops_stop_at_first_sentinel_rank(cuda):

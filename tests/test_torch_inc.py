@@ -323,6 +323,108 @@ def test_consolidate_matches_jax(k):
         assert got_rows[i] == tuple(np.asarray(ref6)[:, r, z, x, y, lane])
 
 
+def test_consolidate_hand_built_matches_jax():
+    """Hand-built 2D planes and movers through the port's arrival_planes +
+    consolidate and JAX arrival_planes + consolidate_jnp.  Cell A holds 3
+    particles and its rank 1 departs (to cell D); cell B holds K - 2 and
+    receives 4 arrivals, so it fills to K and 2 are dropped; cell C
+    receives ARRIVAL_K + 3 (3 dropped).  The same drop count; ranks dense;
+    every slot's values are its id's values; where the outcome is fixed
+    (A, D, B's kept ranks) the same ids at the same ranks; where the
+    unstable sorts choose (B's arrivals, C), the same number taken from the
+    same arrivals."""
+    jp, _ = jfs.scenes.dam_break(n=600, dim=2, jitter=0.3, seed=11)
+    geom = jpm.geometry(jp)
+    tp = convert.params_from_dict(dataclasses.asdict(jp))
+    k, a_k = geom.k, jinc.ARRIVAL_K
+    lo, size = np.asarray(jp.bounds_min), np.asarray(jp.cells_axis)
+    rng = np.random.default_rng(8)
+    cell_a, cell_b, cell_c, cell_d = (3, 4), (10, 5), (20, 6), (30, 7)
+    assert geom.nx > 30 and geom.ny > 7 and k == a_k == 8
+
+    def lin(xy):
+        x, y = xy
+        return ((x // 126) * geom.py + y + 8) * jpm.LANES + x % 126 + 1
+
+    def rows(xy, ids):
+        """(7, len(ids)) particles inside cell xy: x, y, z=0, vx, vy, 0, id"""
+        out = np.zeros((7, len(ids)), np.float32)
+        out[:2] = (lo + (np.asarray(xy) + rng.uniform(0.1, 0.9,
+                                                      (len(ids), 2)))
+                   * size).T
+        out[3:5] = rng.normal(size=(2, len(ids)))
+        out[6] = ids
+        return out
+
+    held = {cell_a: rows(cell_a, [0, 1, 2]),
+            cell_b: rows(cell_b, list(range(3, 3 + k - 2)))}
+    f6 = np.zeros((6, k, geom.pz, geom.n_bx, geom.py, jpm.LANES),
+                  np.float32)
+    f6[:2] = jpm.SENTINEL
+    idp = np.zeros(f6.shape[1:], np.float32)
+    flagp = np.zeros(f6.shape[1:], np.float32)
+    flat6, flat_id = f6.reshape(6, k, -1), idp.reshape(k, -1)
+    for xy, r in held.items():
+        flat6[:, :r.shape[1], lin(xy)] = r[:6]
+        flat_id[:r.shape[1], lin(xy)] = r[6]
+    flagp.reshape(k, -1)[1, lin(cell_a)] = 1.0
+    departed = held[cell_a][:, 1:2].copy()
+    departed[:2, 0] = (lo + (np.asarray(cell_d) + 0.5) * size)
+    arrivals = [departed, rows(cell_b, range(100, 104)),
+                rows(cell_c, range(200, 200 + a_k + 3))]
+    m = sum(a.shape[1] for a in arrivals)
+    movers = np.zeros((7, jinc.mover_capacity(600)), np.float32)
+    movers[:, :m] = rng.permutation(np.concatenate(arrivals, axis=1).T).T
+    by_id = {int(i): r[:, j] for r in held.values()
+             for j, i in enumerate(r[6])}
+    by_id.update({int(i): movers[:, j] for j, i in enumerate(movers[6, :m])})
+
+    arr, _, lost_dup = jinc.arrival_planes(jnp.asarray(movers),
+                                           jnp.int32(m), jp, geom)
+    dense = np.asarray(arr)[:, :-1].reshape(7, a_k, geom.pz, geom.n_bx,
+                                           geom.py, jpm.LANES)
+    ref6, refid, lost_rank = jinc.consolidate_jnp(
+        jnp.asarray(f6), jnp.asarray(idp), jnp.asarray(flagp),
+        jnp.asarray(dense), geom)
+    tarr = tinc.arrival_planes(torch.from_numpy(movers),
+                               torch.tensor(m, dtype=torch.int32), tp,
+                               tpm.geometry(tp))
+    got6, gotid, dropped = tinc.consolidate(
+        torch.from_numpy(f6), torch.from_numpy(idp),
+        torch.from_numpy(flagp), tarr, tpm.geometry(tp))
+    assert int(dropped) == int(lost_dup) + int(lost_rank) == 2 + 3
+
+    def per_cell(p6, pid):
+        """{cell: [ids by rank]}, checking that every slot holds its id's
+        values and that the ranks are dense"""
+        p6, pid = np.asarray(p6).reshape(6, k, -1), np.asarray(pid)
+        valid = p6[0] < jpm.SENTINEL * 0.5
+        assert (valid == (np.arange(k)[:, None] < valid.sum(0))).all()
+        out = {}
+        for c in np.nonzero(valid.any(0))[0]:
+            ids = [int(i) for i in pid.reshape(k, -1)[valid[:, c], c]]
+            for r, i in enumerate(ids):
+                assert np.array_equal(p6[:, r, c], by_id[i][:6]), (c, i)
+            out[int(c)] = ids
+        return out
+
+    got, want = per_cell(got6, gotid), per_cell(ref6, refid)
+    assert sorted(got) == sorted(want) == sorted(
+        lin(c) for c in (cell_a, cell_b, cell_c, cell_d))
+    assert got[lin(cell_a)] == want[lin(cell_a)] == [0, 2]
+    assert got[lin(cell_d)] == want[lin(cell_d)] == [1]
+    kept_b = list(range(3, 3 + k - 2))
+    for ids in (got[lin(cell_b)], want[lin(cell_b)]):
+        assert ids[:k - 2] == kept_b and len(ids) == k
+        assert len(set(ids[k - 2:])) == 2 and set(ids[k - 2:]) <= set(
+            range(100, 104))
+    for ids in (got[lin(cell_c)], want[lin(cell_c)]):
+        assert len(set(ids)) == a_k and set(ids) <= set(
+            range(200, 200 + a_k + 3))
+    assert (gotid.numpy()[got6[0].numpy() >= jpm.SENTINEL * 0.5]
+            == -1).all()
+
+
 @pytest.mark.parametrize("dim,steps", [(2, 3), (3, 2)])
 def test_run_inc_matches_jax(dim, steps):
     """Whole pallas_inc runs: 2D n=600 jittered for 3 steps, the 3D double

@@ -151,6 +151,45 @@ def test_occupancy_exact(case):
     assert np.array_equal(ts_.numpy(), np.asarray(js_))
 
 
+@pytest.mark.parametrize("case", ["2d", "3d", "3d_k16", "multi_tile"])
+def test_occupancy_bounds_plain_edges_match_jax(case):
+    """occupancy_bounds' plain branch against JAX occupancy_bounds on
+    hand-built x planes (ranks dense, numpy-seeded sparse counts), with a
+    cell at K in row y0-1 of the first interior 8-row block and one in row
+    y0+8 of the last (ghost rows: in the slab, in no block's occ_q) and, in
+    3D, one in each z-ghost plane (seen only through occ_s's z-1 / z+1
+    entries): the slab and z-shift logic that the kernel reproduces."""
+    jp, _ = _scene("3d" if case.startswith("3d") else case)
+    if case == "3d_k16":
+        jp = jp.replace(cell_capacity=16)
+    geom = jpm.geometry(jp)
+    k = geom.k
+    assert geom.n_by >= 2
+    rng = np.random.default_rng(6)
+    shape = (geom.pz, geom.n_bx, geom.py, jpm.LANES)
+    counts = np.where(rng.random(shape) < 0.02,
+                      rng.integers(1, k // 2 + 1, shape), 0)
+    rb = jpm.ROWS_PER_BLOCK
+    z_in = 1 if geom.dim == 3 else 0
+    counts[z_in, 0, rb - 1, 5] = k              # y0-1 of the first block
+    counts[z_in, -1, (geom.n_by + 1) * rb, 60] = k   # y0+8 of the last
+    if geom.dim == 3:
+        counts[0, 0, rb + 3, 7] = k             # z ghost planes
+        counts[-1, 0, 2 * rb + 2, 9] = k
+    x = np.where(np.arange(k).reshape(k, 1, 1, 1, 1) < counts[None],
+                 np.float32(0.5), np.float32(jpm.SENTINEL))[None]
+    jq, js_ = jpm.occupancy_bounds(jnp.asarray(x), jp, geom)
+    tp = convert.params_from_dict(dataclasses.asdict(jp))
+    planes = torch.from_numpy(x)
+    tq, ts_ = tpm.occupancy_bounds(planes, tp, tpm.geometry(tp))
+    pq, ps = tpm.occupancy_bounds_plain(planes, tp, tpm.geometry(tp))
+    for got in ((tq, ts_), (pq, ps)):
+        assert np.array_equal(got[0].numpy(), np.asarray(jq))
+        assert np.array_equal(got[1].numpy(), np.asarray(js_))
+    # the planted cells reach the slab but not occ_q
+    assert int(ts_.max()) == k and int(tq.max()) < k
+
+
 def test_halo_x_exact_multi_tile():
     jp, _ = _multi_tile_scene()
     geom = jpm.geometry(jp)
