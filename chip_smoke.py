@@ -57,14 +57,15 @@ Phase 3 also runs config 2, the 2D dam break of 65,522 particles, for 200
 steps through FluidSim(method="gridded") (plain PyTorch: no kernel).
 Phase 5 also runs the packed-pair sweep on the evolved double dam break:
 accel_mxu with the launch counts zeroed, the kernel against its plain
-version, its padding accounting (table_stats and the exact 27-cell pair
-ideal), its time and bound, and the rank-plane accel_planes (force) on the
+version, its padding accounting (table_stats, the pairs the kernel's
+query groups evaluate, and the exact 27-cell pair ideal), its time and
+bound, and the rank-plane accel_planes (force) on the
 same positions, velocities and density, timed and held within 1e-6 of its
 largest acceleration.
 The redesigned kernels (density, force, force_step, force_step_cont,
-gather, compact, consolidate, consolidate_rho, occ_rowmax) carry in their
-config-4 (force, gather: config-3) kernel_time lines, and in the
-`redesigned` line, the registers, spills and shared memory of their
+gather, compact, consolidate, consolidate_rho, occ_rowmax, sweep_packed)
+carry in their config-4 (force, gather: config-3) kernel_time lines, and
+in the `redesigned` line, the registers, spills and shared memory of their
 main-path instantiation (from the build's -Xptxas -v report and the
 sweep kernels' own dynamic shared memory queries) and their previous
 design's time (prev_ms, a constant).  Phase 5 also holds the plain force
@@ -97,6 +98,10 @@ FORCE_CONT_PAIR_FLOPS = FORCE_PAIR_FLOPS + 17
 # bound does, not the padded pairs its three ranges cover.
 PACKED_PAIR_FLOPS = 15
 PACKED_SUPPORT_FLOPS = 22
+# the kernel's test of a segment row against its group's bounding box (6
+# differences, 6 maxima, the squared distance, the compare); its issued
+# rate counts that per row walked, the pair cost per row tested
+PACKED_BOX_FLOPS = 16
 REPS = 20
 # the previous designs' times of the redesigned kernels, as PERF.md
 # section 6 records them (this script on an H100 80GB HBM3 at 700.00 W):
@@ -106,7 +111,9 @@ PREV_MS = {"force": 0.33824, "force_step": 1.87198,
            "density": 0.46470, "gather": 0.02869, "consolidate": 0.40340,
            "consolidate_rho": 0.47705,
            # occ_rowmax: its device time (torch.profiler), 20 calls in a row
-           "occ_rowmax": 0.01028}
+           "occ_rowmax": 0.01028,
+           # the previous design (a block per query tile over its whole ranges)
+           "sweep_packed": 1.30029}
 PREV_AT_CONFIG3 = ("force", "gather")
 # the instantiation each of them runs on the main paths (K = 8, 3D; the
 # continuity tier's default form, rate; the step's 4 gathered channels
@@ -119,7 +126,8 @@ MAIN_INSTANCE = {"force": "_Z12force_kernelILi8ELi3ELb0ELi0EE",
                  "gather": "_Z13gather_kernelILi4EE",
                  "consolidate": "_Z18consolidate_kernelILb0EE",
                  "consolidate_rho": "_Z18consolidate_kernelILb1EE",
-                 "occ_rowmax": "_Z17occ_rowmax_kernel"}
+                 "occ_rowmax": "_Z17occ_rowmax_kernel",
+                 "sweep_packed": "_Z19packed_sweep_kernel"}
 WARM_EARLY = 100            # bench.py's operating points
 WARM_EVOLVED = 2000
 INC_STEPS = 200
@@ -1111,14 +1119,12 @@ def support_pairs(torch, f, desc, params) -> float:
     return float(total)
 
 
-def phase_packed_sweep(torch, ft, ft_build, state, params):
-    """The packed-pair sweep on the evolved config-4 state: accel_mxu with
-    the counts zeroed, the kernel against its plain version, the padding
-    accounting, the kernel's time and bound, and the rank-plane
-    accel_planes (plain force) on the same positions, velocities and rho,
-    timed and held particle by particle.  Returns (kernel entry, launches)."""
-    from gpufluidsimulator_torch.ops import grid, mxu_sweep, physics, route
-    from gpufluidsimulator_torch.ops import sph
+def packed_inputs(torch, state, params) -> dict:
+    """The packed sweep's input on a state, from the rank planes: the
+    slot-sorted positions and velocities with the density sweep's rho
+    (floored at 1e-3 rest density, as accel_planes' EOS takes it) and its
+    pressure (``args``), and the planes' own density and acceleration."""
+    from gpufluidsimulator_torch.ops import physics, route, sph
     from gpufluidsimulator_torch.ops import planes as pm
 
     geom = pm.geometry(params)
@@ -1131,9 +1137,36 @@ def phase_packed_sweep(torch, ft, ft_build, state, params):
     acc_p = sph.accel_planes(planes, rho_p, occ_q, occ_s, params, geom)
     per = route.gather(torch.cat([acc_p, rho_p[None]]).contiguous(),
                        table.slot)
-    # accel_planes' EOS input: rho floored at 1e-3 rest density
     rho = torch.clamp_min(per[:, 3], 1e-3 * params.rest_density)
-    args = (table.pos_s, table.vel_s, rho, physics.eos_pressure(rho, params))
+    return dict(geom=geom, planes=planes, occ_q=occ_q, occ_s=occ_s,
+                rho_p=rho_p, acc_planes=per[:, :3],
+                args=(table.pos_s, table.vel_s, rho,
+                      physics.eos_pressure(rho, params)))
+
+
+def evaluated_pairs(torch, f, cids, desc, params) -> tuple:
+    """(evaluated, tested): the pairs of the kernel's query groups' row
+    segments (mxu_sweep.group_segments), which it walks, and of the rows of
+    those within h of a group's bounding box (group_candidates), which it
+    tests; each row against the GROUP queries of its group (pad queries
+    included, as covered_pairs counts a tile's 128)."""
+    from gpufluidsimulator_torch.ops import mxu_sweep as mx
+    _, lo, hi = mx.group_segments(cids, desc, params)
+    _, j = mx.group_candidates(f, cids, desc, params)
+    return float((hi - lo).sum()) * mx.GROUP, float(j.numel()) * mx.GROUP
+
+
+def phase_packed_sweep(torch, ft, ft_build, state, params, facts):
+    """The packed-pair sweep on the evolved config-4 state: accel_mxu with
+    the counts zeroed, the kernel against its plain version, the padding
+    accounting, the kernel's time and bound, and the rank-plane
+    accel_planes (plain force) on the same positions, velocities and rho,
+    timed and held particle by particle.  Returns (kernel entry, launches)."""
+    from gpufluidsimulator_torch.ops import grid, mxu_sweep, sph
+
+    inp = packed_inputs(torch, state, params)
+    geom, planes, rho_p = inp["geom"], inp["planes"], inp["rho_p"]
+    occ_q, occ_s, args = inp["occ_q"], inp["occ_s"], inp["args"]
     n = state.n
 
     torch.cuda.synchronize()
@@ -1147,19 +1180,19 @@ def phase_packed_sweep(torch, ft, ft_build, state, params):
     # both in slot-sorted order; accel_planes has no gravity either.  The
     # largest |a| (a close pair) sets the scale: 1e-6 of it still fails a
     # dropped viscosity term or a dropped neighbour range
-    err_p, rel_p = rel_err(acc, per[:, :3])
+    err_p, rel_p = rel_err(acc, inp["acc_planes"])
     check(rel_p <= 1e-6, f"accel_mxu vs accel_planes: rel {rel_p}")
     norm = torch.linalg.vector_norm
-    rms_p = float(norm((acc - per[:, :3]).double()) / norm(per[:, :3]
-                                                           .double()))
+    rms_p = float(norm((acc - inp["acc_planes"]).double())
+                  / norm(inp["acc_planes"].double()))
 
     f, cids, _ = mxu_sweep.pack(*args, params)
     desc = mxu_sweep.build_desc(cids, f.shape[0], params)
-    got = mxu_sweep.sweep_packed(f, desc, params)
+    got = mxu_sweep.sweep_packed(f, cids, desc, params)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    want_f = mxu_sweep.sweep_packed_plain(f, desc, params)
+    want_f = mxu_sweep.sweep_packed_plain(f, cids, desc, params)
     t1.record()
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1)
@@ -1175,25 +1208,35 @@ def phase_packed_sweep(torch, ft, ft_build, state, params):
     ideal = int(sum(hist[cids_np + o].sum()
                     for o in grid.neighbor_offsets(params)))
     support = support_pairs(torch, f, desc, params)
+    evaluated, tested = evaluated_pairs(torch, f, cids, desc, params)
+    check(evaluated <= 0.4 * stats["covered_pairs"],
+          f"sweep_packed evaluates {evaluated} pairs, over 40% of the "
+          f"{stats['covered_pairs']} its tiles' ranges cover")
     stats.update(candidate_pair_ideal=ideal, support_pairs=support,
+                 evaluated_pairs=evaluated, tested_pairs=tested,
                  pad_eval_vs_ideal=stats["eval_pairs"] / ideal,
-                 pad_covered_vs_ideal=stats["covered_pairs"] / ideal)
+                 pad_covered_vs_ideal=stats["covered_pairs"] / ideal,
+                 evaluated_vs_ideal=evaluated / ideal,
+                 evaluated_vs_covered=evaluated / stats["covered_pairs"])
     emit({"phase": "packed_table", **stats})
 
     q = f.shape[0] // mxu_sweep.TQ
-    c = dict(bytes=f.numel() * 4 + q * 8 * 4 + f.shape[0] * 3 * 4,
+    c = dict(bytes=f.numel() * 4 + n * 4 + q * 8 * 4 + f.shape[0] * 3 * 4,
              flops=PACKED_PAIR_FLOPS * ideal + PACKED_SUPPORT_FLOPS * support)
     r = dict(max_abs_err=err,
-             ms=time_ms(torch, lambda: mxu_sweep.sweep_packed(f, desc,
-                                                              params), REPS),
+             ms=time_ms(torch, lambda: mxu_sweep.sweep_packed(
+                 f, cids, desc, params), REPS),
              plain_ms=plain_ms, library_ms=None, **bounds(c))
     emit({"phase": "kernel_time", "kernel": "sweep_packed",
           "shape": f"double_dam_break n=1e6 3D ({n:,} particles), evolved, "
                    f"packed: Npad {f.shape[0]}, Q {q}",
           "candidate_pairs": ideal, "covered_pairs": stats["covered_pairs"],
+          "evaluated_pairs": evaluated, "tested_pairs": tested,
           "support_pairs": support,
+          **facts["sweep_packed"],
           "gflops_useful": c["flops"] / r["ms"] / 1e6,
-          "gflops_issued": (PACKED_PAIR_FLOPS * stats["covered_pairs"]
+          "gflops_issued": (PACKED_BOX_FLOPS * evaluated / mxu_sweep.GROUP
+                            + PACKED_PAIR_FLOPS * tested
                             + PACKED_SUPPORT_FLOPS * support) / r["ms"] / 1e6,
           **{k: r[k] for k in TIME_KEYS}})
     emit({"phase": "packed_vs_planes", "particles": n,
@@ -1313,7 +1356,8 @@ def main() -> int:
     facts = redesign_facts(ft_build.ptxas_report(ft_build.build_log["text"]),
                            {"force": force_smem, "force_step": force_smem,
                             "force_step_cont": force_smem,
-                            "density": lib.fk_density_smem(8)})
+                            "density": lib.fk_density_smem(8),
+                            "sweep_packed": lib.fk_sweep_packed_smem()})
     emit({"phase": "redesigned", **facts})
     phase_parity(torch, ft)
     phase_parity_inc(torch, ft)
@@ -1329,7 +1373,7 @@ def main() -> int:
     results = phase_kernels(torch, ft, facts)
     results_inc = phase_inc_kernels(torch, ft, state, params, facts)
     packed, counts_packed = phase_packed_sweep(torch, ft, ft_build, state,
-                                               params)
+                                               params, facts)
     del state
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

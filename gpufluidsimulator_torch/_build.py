@@ -55,7 +55,7 @@ SIGNATURES = {
                            _F, _F, _I, _P, _I, _I, _I, _I, _P, _P],
     "fk_consolidate_rho": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P],
-    "fk_sweep_packed": [_P, _P, _P, _I, _F, _F, _F, _P],
+    "fk_sweep_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 
 # kernel name -> launches since the last reset (a plain count per wrapper;
@@ -170,6 +170,12 @@ def library() -> ctypes.CDLL:
     lib.fk_force_smem.restype = ctypes.c_int
     lib.fk_density_smem.argtypes = [ctypes.c_int]
     lib.fk_density_smem.restype = ctypes.c_int
+    lib.fk_sweep_packed_smem.argtypes = []
+    lib.fk_sweep_packed_smem.restype = ctypes.c_int
+    lib.fk_sweep_packed_group.argtypes = []
+    lib.fk_sweep_packed_group.restype = ctypes.c_int
+    lib.fk_sweep_packed_box_margin.argtypes = []
+    lib.fk_sweep_packed_box_margin.restype = ctypes.c_float
     return lib
 
 

@@ -4,6 +4,8 @@
 // (f * K + k) * cells + cell.
 #pragma once
 
+#include <atomic>
+
 #include <cuda_runtime.h>
 
 #define FK_SENTINEL 1.0e6f
@@ -11,6 +13,28 @@
 #define FK_LANES 128
 #define FK_TILE_X 126
 #define FK_ROWS_PER_BLOCK 8
+#define FK_MAX_DEVICES 64
+
+// Past 48 KB, a block gets only the dynamic shared memory its kernel opted
+// in to.  One FkOptIn per kernel (a function-local static) sets it once
+// per device.
+struct FkOptIn {
+    std::atomic<bool> done[FK_MAX_DEVICES];
+
+    template <typename Kernel>
+    cudaError_t operator()(Kernel kernel, int bytes) {
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return err;
+        if (dev < FK_MAX_DEVICES && done[dev].load(std::memory_order_relaxed))
+            return cudaSuccess;
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err == cudaSuccess && dev < FK_MAX_DEVICES)
+            done[dev].store(true, std::memory_order_relaxed);
+        return err;
+    }
+};
 
 // Layout of one launch: the plane geometry plus the derived z stride.
 struct FkGeom {

@@ -54,8 +54,6 @@
 // 0.169 ms at the 260,850-particle dam break; 5.3x its bytes bound for
 // force_step.  The pair arithmetic, the staging and the fill of the empty
 // slots share the time; the device stays latency-bound (see PERF.md).
-#include <atomic>
-
 #include "tile.cuh"
 
 #define FK_MAX_OBS 4
@@ -423,32 +421,16 @@ constexpr int fk_stage_bytes() {
     return 2 * fk_stage_ranks<KMAX>() * FK_STAGE_CELLS * (int)sizeof(float4);
 }
 
-// Past 48 KB with the static part, a block gets only the dynamic shared
-// memory its kernel opted in to: set once per instantiation and device
-#define FK_MAX_DEVICES 64
-template <int KMAX, int DIM, bool FUSE, int CONT>
-static cudaError_t fk_opt_in() {
-    static std::atomic<bool> done[FK_MAX_DEVICES];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < FK_MAX_DEVICES && done[dev].load(std::memory_order_relaxed))
-        return cudaSuccess;
-    err = cudaFuncSetAttribute(force_kernel<KMAX, DIM, FUSE, CONT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               fk_stage_bytes<KMAX>());
-    if (err == cudaSuccess && dev < FK_MAX_DEVICES)
-        done[dev].store(true, std::memory_order_relaxed);
-    return err;
-}
-
 template <int KMAX, int DIM, bool FUSE, int CONT>
 static int launch_force(const float* fields, const float* rho,
                         const FkOcc& occ, float* out, float* flag,
                         float* rho_out, const FkGeom& g, float h,
                         const FkEos& e, const FkStep& s, const FkCont& ct,
                         cudaStream_t st) {
-    const cudaError_t err = fk_opt_in<KMAX, DIM, FUSE, CONT>();
+    // past 48 KB with the static part: once per instantiation and device
+    static FkOptIn opt_in;
+    const cudaError_t err = opt_in(force_kernel<KMAX, DIM, FUSE, CONT>,
+                                   fk_stage_bytes<KMAX>());
     if (err != cudaSuccess) return (int)err;
     const long long blocks = g.cells / (FK_TILE_LANES * FK_TILE_ROWS);
     force_kernel<KMAX, DIM, FUSE, CONT>

@@ -17,8 +17,9 @@ bounds zeroed on purpose), the gather's edges (3, 4 and 5 channels, a
 count that is not a multiple of 32, slots past the end), the
 compaction's edges (no flag, every flag, the first and last slot, 1 and
 8 channels, a partial last chunk, calls in a row), and the packed-pair
-sweep with a sentinel tail and a query tile whose three candidate
-ranges are empty.
+sweep with a sentinel tail, a query tile whose three candidate ranges
+are empty, particles on cell corners, query groups across row and plane
+wraps, and tiles whose ranges it stages in several windows.
 Tolerances as in ``chip_smoke.py``: occupancy, placement, gather,
 compaction and consolidation exact; density and the packed sweep relative
 1e-5 and force 1e-4 (summation order and ``rsqrtf``); the fused force
@@ -747,14 +748,56 @@ def _settled_packed(n, steps):
     return params, [state.pos, state.vel, rho, pres]
 
 
-@pytest.mark.parametrize("request_n", [1100, 777])
-def test_sweep_packed_matches_plain(cuda, request_n):
+def _stress_packed(seed=5):
+    """The stress scene of the packed sweep's pruning rule (which
+    tests/test_torch_mxu.py holds on the CPU too): a 5^3 block of particles
+    exactly on cell corners, 150 in one cell, 300 scattered over the box
+    (query groups across y-row and z-plane wraps); random velocities,
+    summation density and pressure."""
+    params, _ = ft.scenes.dam_break(n=4096, dim=3, device="cpu")
+    h = params.h
+    rng = np.random.default_rng(seed)
+    k = np.arange(3, 8, dtype=np.float32)
+    faces = np.stack(np.meshgrid(k, k, k, indexing="ij"), -1).reshape(-1, 3)
+    faces = faces * np.float32(h)
+    lump = (12.0 + rng.uniform(0.05, 0.95, (150, 3))) * h
+    cloud = rng.uniform(0.02, 0.98, (300, 3))
+    pos = torch.from_numpy(np.concatenate([faces, lump, cloud])
+                           .astype(np.float32))
+    vel = torch.from_numpy(rng.normal(0.0, 0.5, pos.shape).astype(np.float32))
+    rho = naive.density_naive(pos, params)
+    return params, [pos, vel, rho, physics.eos_pressure(rho, params)]
+
+
+def _dense_packed(seed=6):
+    """2,600 particles in one cell (numpy-seeded): the tiles' ranges hold
+    more rows than the kernel stages at a time."""
+    params, _ = ft.scenes.dam_break(n=4096, dim=3, device="cpu")
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(((12.0 + rng.uniform(0.0, 1.0, (2600, 3)))
+                            * params.h).astype(np.float32))
+    vel = torch.from_numpy(rng.normal(0.0, 0.5, pos.shape).astype(np.float32))
+    rho = naive.density_naive(pos, params)
+    return params, [pos, vel, rho, physics.eos_pressure(rho, params)]
+
+
+@pytest.mark.parametrize("scene", ["1100", "777", "stress", "dense"])
+def test_sweep_packed_matches_plain(cuda, scene):
     """The packed sweep's kernel against its plain version on the same
-    packed rows (relative 1e-5: summation order and rsqrtf), on settled
-    scenes of 1,080 and 715 particles (sentinel tails of 72 and 53 rows);
-    the descriptor built on the card equals the CPU's; accel_mxu on the
-    card against the port's CPU path."""
-    params, host = _settled_packed(request_n, 5 if request_n == 1100 else 3)
+    packed rows (relative 1e-5: summation order and rsqrtf; the kernel
+    skips pairs that add 0), on settled scenes of 1,080 and 715 particles
+    (sentinel tails of 72 and 53 rows), on the pruning rule's stress
+    scene (575 particles) and on 2,600 particles in one cell (tiles whose
+    ranges the kernel stages in several windows); pad rows exactly 0; the
+    descriptor built on the card equals the CPU's; accel_mxu on the card
+    against the port's CPU path."""
+    if scene == "stress":
+        params, host = _stress_packed()
+    elif scene == "dense":
+        params, host = _dense_packed()
+    else:
+        params, host = _settled_packed(int(scene),
+                                       5 if scene == "1100" else 3)
     n = host[0].shape[0]
     args = [t.to(cuda) for t in host]
     f, cids, order = mxu_sweep.pack(*args, params)
@@ -762,8 +805,8 @@ def test_sweep_packed_matches_plain(cuda, request_n):
     assert torch.equal(desc.cpu(), mxu_sweep.build_desc(cids.cpu(),
                                                         f.shape[0], params))
     before = dict(_build.launches)
-    got = mxu_sweep.sweep_packed(f, desc, params)
-    want = mxu_sweep.sweep_packed_plain(f, desc, params)
+    got = mxu_sweep.sweep_packed(f, cids, desc, params)
+    want = mxu_sweep.sweep_packed_plain(f, cids, desc, params)
     torch.cuda.synchronize()
     assert _rel(got, want) <= 1e-5
     assert (got[n:] == 0).all()
@@ -781,11 +824,11 @@ def test_sweep_packed_empty_tile_and_refusals(cuda):
     params, host = _settled_packed(777, 3)
     f, cids, _ = mxu_sweep.pack(*(t.to(cuda) for t in host), params)
     desc = mxu_sweep.build_desc(cids, f.shape[0], params)
-    base = mxu_sweep.sweep_packed(f, desc, params)
+    base = mxu_sweep.sweep_packed(f, cids, desc, params)
     cut = desc.clone()
     cut[2, :7] = 0
-    got = mxu_sweep.sweep_packed(f, cut, params)
-    want = mxu_sweep.sweep_packed_plain(f, cut, params)
+    got = mxu_sweep.sweep_packed(f, cids, cut, params)
+    want = mxu_sweep.sweep_packed_plain(f, cids, cut, params)
     tile = slice(2 * mxu_sweep.TQ, 3 * mxu_sweep.TQ)
     assert (got[tile] == 0).all() and (want[tile] == 0).all()
     rest = torch.ones(f.shape[0], dtype=torch.bool, device=cuda)
@@ -793,8 +836,12 @@ def test_sweep_packed_empty_tile_and_refusals(cuda):
     assert torch.equal(got[rest], base[rest])
     assert _rel(got, want) <= 1e-5
     with pytest.raises(ValueError, match="float32"):
-        mxu_sweep.sweep_packed(f.double(), desc, params)
+        mxu_sweep.sweep_packed(f.double(), cids, desc, params)
     with pytest.raises(ValueError, match="multiple"):
-        mxu_sweep.sweep_packed(f[:-1], desc, params)
+        mxu_sweep.sweep_packed(f[:-1], cids, desc, params)
     with pytest.raises(ValueError, match="shape"):
-        mxu_sweep.sweep_packed(f, desc[:-1], params)
+        mxu_sweep.sweep_packed(f, cids, desc[:-1], params)
+    with pytest.raises(ValueError, match="int32"):
+        mxu_sweep.sweep_packed(f, cids.long(), desc, params)
+    with pytest.raises(ValueError, match="particles"):
+        mxu_sweep.sweep_packed(f, cids[:-mxu_sweep.TQ], desc, params)
