@@ -46,7 +46,22 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               occupancy_bounds and compact also with device times, the
               first two also cold); force_step_cont in every form and
               switch, the 8-channel compact and consolidate_rho
-  6. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
+  6. tools     the user-facing entry points at config 4: the CLI's `run`
+              in-process (200 steps, frames, checkpoints, metrics JSON;
+              overflow 0, the launch counts), `run --resume` and, in the
+              API, pallas_inc from the loaded checkpoint and from the
+              state that was saved (bitwise equal), pallas_inc_cont
+              across save_planes / load_planes (bitwise, a re-sum among
+              the steps); `bench` on pallas_inc and pallas_inc_cont and
+              scripts/torch_bench.py, held within a factor of 1.25 of the
+              run_inc lines' step_planes_ms; the evolved state rendered
+              twice (equal PNG bytes) and on the CPU (within 1e-5 of the
+              maximum, one level), `render` of a checkpoint;
+              debug.assert_deterministic on config 3 pallas, config 4
+              pallas_inc and pallas_inc_cont, checked_step on a NaN and an
+              overflow; FluidSim(method="native") against naive and
+              `bench --method native`
+  7. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
      numbers, the mode the steps launch, and holds the row-maxima-only
      call's under row_maxima_only), the card line, and the final ok line.
 Phase 2 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
@@ -711,8 +726,9 @@ def phase_gridded_run(torch, ft, ft_build):
 
 def phase_inc_run(torch, ft, ft_build):
     """Config 4 through FluidSim(method="auto") at bench.py's two operating
-    points.  Returns the evolved state, the params and the launch counts
-    of the early run."""
+    points.  Returns the evolved state, the params, the launch counts of
+    the early runs (pallas_inc, pallas_inc_cont) and step_planes' ms at
+    each point."""
     from gpufluidsimulator_torch.models import solver
     from gpufluidsimulator_torch.ops import inc
     from gpufluidsimulator_torch.ops import planes as pm
@@ -731,6 +747,7 @@ def phase_inc_run(torch, ft, ft_build):
     sim = ft.FluidSim(params, warm.state)            # method="auto"
     del warm
     counts = counts_cont = {}
+    step_planes_ms = {}
     done = WARM_EARLY
     for label, at in (("early", WARM_EARLY), ("evolved", WARM_EVOLVED)):
         if at > done:
@@ -781,6 +798,7 @@ def phase_inc_run(torch, ft, ft_build):
                 s = inc.step_planes(s, params, geom, m_cap)
             return s
         step_ms = time_ms(torch, steps, 3) / 20
+        step_planes_ms[label] = step_ms
         del s0
         emit({"phase": "run_inc", "scene": "double_dam_break_3d_1197770",
               "method": resolved, "point": label,
@@ -794,7 +812,7 @@ def phase_inc_run(torch, ft, ft_build):
                          label, done - INC_STEPS)
         if label == "early":
             counts_cont = got
-    return sim.state, params, counts, counts_cont
+    return sim.state, params, counts, counts_cont, step_planes_ms
 
 
 def positions_by_id(st):
@@ -1303,6 +1321,359 @@ def check_force_step(torch, got, want, p6, params, geom, what):
     return out
 
 
+# the tools phase: the CLI run at config 4 (two report intervals), the
+# steps after each resume, and how far bench's time of step_planes may lie
+# from the run_inc phase's
+TOOLS_STEPS = 200
+TOOLS_REPORT = 100
+TOOLS_RESUME = 100
+BENCH_FACTOR = 1.25
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def cli_call(argv):
+    """``cli.main(argv)`` with its standard output captured: (rc, lines)."""
+    import contextlib
+    import io
+    from gpufluidsimulator_torch.utils import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def last_json(lines) -> dict:
+    found = [ln for ln in lines if ln.startswith("{")]
+    check(bool(found), f"no JSON line in {lines[-3:]}")
+    return json.loads(found[-1])
+
+
+def same_state(torch, a, b) -> bool:
+    """Every field of two NamedTuple states equal: tensors bitwise, host
+    values (an IncState's age, a missing rhop) by ==."""
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(a, b))
+
+
+def is_png(path) -> bool:
+    with open(path, "rb") as f:
+        return f.read(8) == PNG_MAGIC
+
+
+def tools_run(torch, ft_build, tmp, scene4):
+    """``python -m gpufluidsimulator_torch run`` in-process at config 4,
+    with frames, checkpoints and the metrics JSON; returns the states that
+    ``checkpoint.rotate`` was handed, by step."""
+    import os
+    from gpufluidsimulator_torch.utils import checkpoint
+
+    ckdir, frdir = os.path.join(tmp, "ckpts"), os.path.join(tmp, "frames")
+    mj = os.path.join(tmp, "metrics.json")
+    saved = {}
+    rotate = checkpoint.rotate
+
+    def keep(directory, state, params, step, keep=3):
+        saved[step] = (state, params)
+        return rotate(directory, state, params, step, keep)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft_build.reset_launches()
+    checkpoint.rotate = keep
+    w0 = time.perf_counter()
+    try:
+        rc, lines = cli_call(
+            ["run", *scene4, "--method", "auto", "--steps", str(TOOLS_STEPS),
+             "--report-every", str(TOOLS_REPORT), "--checkpoint-dir", ckdir,
+             "--frames-dir", frdir, "--width", "512", "--height", "512",
+             "--metrics-json", mj])
+    finally:
+        checkpoint.rotate = rotate
+    wall = time.perf_counter() - w0
+    got = dict(ft_build.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(rc == 0, f"cli run: rc {rc}: {lines[-3:]}")
+    final = last_json(lines)
+    check(final["overflow"] == 0 and not final["nan"],
+          f"cli run: final invariants {final}")
+    frames = sorted(os.listdir(frdir))
+    ckpts = sorted(os.listdir(ckdir))
+    check(len(frames) == TOOLS_STEPS // TOOLS_REPORT
+          and all(is_png(os.path.join(frdir, f)) for f in frames),
+          f"cli run: frames {frames}")
+    check(len(ckpts) >= 1, "cli run: no checkpoint")
+    # FluidSim(method="auto") runs each report interval on pallas_inc; its
+    # conversion back to a flat state with diagnostics on (the CLI's
+    # scenes) sums the density once more
+    chunks = TOOLS_STEPS // TOOLS_REPORT
+    want = dict.fromkeys(got, 0)
+    want.update(occ_rowmax=TOOLS_STEPS + chunks,
+                density=TOOLS_STEPS + chunks,
+                force_step=TOOLS_STEPS, consolidate=TOOLS_STEPS,
+                compact=TOOLS_STEPS + chunks, place=chunks)
+    check(got == want, f"cli run: launches {got}, expected {want}")
+    with open(mj) as f:
+        m = json.load(f)
+    emit({"phase": "tools", "step": "cli_run",
+          "scene": "double_dam_break_3d_1197770", "header": lines[0],
+          "particles": m["n_particles"], "steps": m["steps"],
+          "particle_steps_per_s": m["mean_particle_steps_per_sec"],
+          "samples": [{k: smp[k] for k in ("step", "ms_per_frame",
+                                           "particle_steps_per_sec")}
+                      for smp in m["samples"]],
+          "wall_s": wall, "peak_mem_gb": peak, "launches": got,
+          "frames": frames, "checkpoints": ckpts,
+          "checkpoint_mb": os.path.getsize(os.path.join(ckdir, ckpts[-1]))
+          / 1e6, "final": final})
+    return saved, os.path.join(ckdir, ckpts[-1])
+
+
+def tools_resume(torch, ft, tmp, scene4, latest, saved):
+    """The CLI resumes the latest checkpoint; in the API, pallas_inc from
+    the loaded file and from the state that was saved agree bitwise, and
+    so does pallas_inc_cont across a save_planes / load_planes in the
+    middle of a step_planes loop (saved at age 30, 50 steps more: the
+    re-sum at age 64 among them)."""
+    import os
+    from gpufluidsimulator_torch.ops import inc
+    from gpufluidsimulator_torch.ops import planes as pm
+    from gpufluidsimulator_torch.utils import checkpoint
+
+    rc, lines = cli_call(["run", "--resume", latest, *scene4[:2],
+                          "--method", "auto", "--steps", str(TOOLS_RESUME),
+                          "--report-every", str(TOOLS_RESUME)])
+    check(rc == 0 and lines[0].startswith("resumed from"),
+          f"cli resume: rc {rc}: {lines[:2]}")
+    final = last_json(lines)
+    check(final["overflow"] == 0 and not final["nan"],
+          f"cli resume: final invariants {final}")
+
+    loaded, params, step = checkpoint.load(latest)
+    mem, params_mem = saved[step]
+    check(params == params_mem and same_state(torch, loaded, mem),
+          "checkpoint.load differs from the state saved")
+    a = ft.FluidSim(params, loaded, method="pallas_inc")
+    b = ft.FluidSim(params_mem, mem, method="pallas_inc")
+    a.step(TOOLS_RESUME)
+    b.step(TOOLS_RESUME)
+    flat_equal = same_state(torch, a.state, b.state)
+    check(flat_equal, "pallas_inc from the loaded checkpoint differs from "
+                      "the run from the state saved")
+    del a, b
+
+    geom = pm.geometry(params)
+    m_cap = inc.mover_capacity(loaded.n)
+    s = inc.to_planes(loaded.pos, loaded.vel, loaded.ids, params, geom,
+                      continuity=True)
+    for _ in range(30):
+        s = inc.step_planes(s, params, geom, m_cap)
+    path = os.path.join(tmp, "planes.npz")
+    w0 = time.perf_counter()
+    checkpoint.save_planes(path, s, params, step=step + 30, n=loaded.n)
+    save_s = time.perf_counter() - w0
+    w0 = time.perf_counter()
+    r, params_r, step_r, n_r = checkpoint.load_planes(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - w0
+    check(same_state(torch, r, s) and params_r == params
+          and (step_r, n_r) == (step + 30, loaded.n),
+          "load_planes differs from the IncState saved")
+    for _ in range(50):
+        s = inc.step_planes(s, params, geom, m_cap)
+        r = inc.step_planes(r, params_r, geom, m_cap)
+    check(s.age == 80 and same_state(torch, s, r),
+          "pallas_inc_cont from load_planes differs from the uninterrupted "
+          "run")
+    emit({"phase": "tools", "step": "resume", "checkpoint_step": step,
+          "cli_resume_final": final, "pallas_inc_steps": TOOLS_RESUME,
+          "pallas_inc_bitwise": flat_equal,
+          "planes_saved_at_age": 30, "planes_steps_after": 50,
+          "resum_ages_crossed": [64], "planes_bitwise": True,
+          "planes_mb": os.path.getsize(path) / 1e6,
+          "save_planes_s": save_s, "load_planes_s": load_s})
+
+
+def tools_bench(scene4, step_planes_ms):
+    """bench at config 4 on both tiers and scripts/torch_bench.py; bench's
+    ms_per_frame on pallas_inc and torch_bench's rates against the
+    step_planes times of the run_inc phase."""
+    import contextlib
+    import importlib.util
+    import io
+    from pathlib import Path
+
+    lines = {}
+    for method in ("pallas_inc", "pallas_inc_cont"):
+        rc, out = cli_call(["bench", *scene4, "--method", method])
+        check(rc == 0, f"cli bench {method}: rc {rc}")
+        lines[method] = last_json(out)
+    spec = importlib.util.spec_from_file_location(
+        "torch_bench", Path(__file__).resolve().parent / "scripts"
+        / "torch_bench.py")
+    tb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tb)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tb.main()
+    check(rc == 0, f"torch_bench: rc {rc}")
+    tb_line = last_json(buf.getvalue().splitlines())
+    n = tb_line["particles"]
+    ratio = lines["pallas_inc"]["ms_per_frame"] / step_planes_ms["early"]
+    check(1 / BENCH_FACTOR <= ratio <= BENCH_FACTOR,
+          f"bench ms_per_frame {lines['pallas_inc']['ms_per_frame']} vs "
+          f"run_inc step_planes_ms {step_planes_ms['early']}: ratio {ratio}")
+    tb_ratio = {}
+    for point in ("early", "evolved"):
+        ms = n * 1e3 / tb_line["operating_points"][point]["value"]
+        tb_ratio[point] = ms / step_planes_ms[point]
+        check(1 / BENCH_FACTOR <= tb_ratio[point] <= BENCH_FACTOR,
+              f"torch_bench {point} {ms} ms vs run_inc step_planes_ms "
+              f"{step_planes_ms[point]}: ratio {tb_ratio[point]}")
+    emit({"phase": "tools", "step": "bench", "card": card_line(),
+          "bench": lines, "torch_bench": tb_line,
+          "run_inc_step_planes_ms": step_planes_ms,
+          "bench_pallas_inc_vs_step_planes_early": ratio,
+          "torch_bench_vs_step_planes": tb_ratio, "factor": BENCH_FACTOR})
+
+
+def tools_render(torch, tmp, latest, state, params):
+    """The evolved config-4 state rendered twice on the card (equal PNG
+    bytes) and once on the CPU (framebuffers within 1e-5 of their
+    maximum, images within one level); the CLI renders a checkpoint.
+    Also times one render_frame (CUDA events), one save_frame and one
+    metrics.invariants (host clock): a CLI report interval's extras."""
+    import os
+    from gpufluidsimulator_torch.ops import render
+    from gpufluidsimulator_torch.utils import metrics
+
+    a, b = os.path.join(tmp, "a.png"), os.path.join(tmp, "b.png")
+    w0 = time.perf_counter()
+    render.save_frame(a, state, params)
+    save_s = time.perf_counter() - w0
+    render.save_frame(b, state, params)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        check(fa.read() == fb.read(), "two renders of one state differ")
+    card = render.render_frame(state, params)
+    cpu = render.render_frame(state.to("cpu"), params)
+    # printed, not gated: the gates are the tolerances below
+    bitwise = torch.equal(card.cpu(), cpu)
+    err = float((card.cpu() - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    check(err <= 1e-5 * scale, f"render card vs cpu: {err} of {scale}")
+    levels = int(np.abs(render.tonemap(card).astype(np.int64)
+                        - render.tonemap(cpu)).max())
+    check(levels <= 1, f"tonemapped card vs cpu differ by {levels} levels")
+    ms = time_ms(torch, lambda: render.render_frame(state, params), 10)
+    w0 = time.perf_counter()
+    metrics.invariants(state, params)
+    invariants_s = time.perf_counter() - w0
+    out = os.path.join(tmp, "ckpt.png")
+    rc, lines = cli_call(["render", latest, "-o", out])
+    check(rc == 0 and is_png(out), f"cli render: rc {rc}: {lines}")
+    emit({"phase": "tools", "step": "render", "particles": state.n,
+          "width": 512, "height": 512, "png_bytes_equal": True,
+          "card_vs_cpu_bitwise": bitwise,
+          "card_vs_cpu_max_abs": err, "card_vs_cpu_rel": err / scale,
+          "tol": 1e-5, "tonemap_max_level_diff": levels,
+          "render_frame_ms": ms, "save_frame_s": save_s,
+          "invariants_s": invariants_s,
+          "cli_render": lines[-1]})
+
+
+def tools_checks(torch, ft, state, params):
+    """debug.assert_deterministic on the three step paths (config 3
+    pallas, config 4 pallas_inc and pallas_inc_cont, the latter across a
+    re-sum); checked_step on a planted NaN and a forced overflow."""
+    from gpufluidsimulator_torch.utils import debug
+
+    p3, s3 = ft.scenes.dam_break(n=262144, dim=3)
+    runs = ((p3, s3, 20, "pallas"), (params, state, 50, "pallas_inc"),
+            (params, state, 70, "pallas_inc_cont"))
+    done = []
+    for p, s, steps, method in runs:
+        w0 = time.perf_counter()
+        try:
+            debug.assert_deterministic(p, s, steps, method)
+        except AssertionError as err:
+            check(False, f"assert_deterministic: {err}")
+        done.append({"method": method, "particles": s.n, "steps": steps,
+                     "seconds": time.perf_counter() - w0})
+    del p3, s3
+    pn, sn = ft.scenes.dam_break(n=2000, dim=2)
+    clean = debug.checked_step(pn, "pallas")(sn)
+    check(int(clean.overflow) == 0, "checked_step: clean step overflowed")
+    bad = sn.pos.clone()
+    bad[7, 0] = float("nan")
+    raised = {}
+    for what, call in (
+            ("nan", lambda: debug.checked_step(pn, "naive")(
+                sn._replace(pos=bad))),
+            ("overflow", lambda: debug.checked_step(
+                pn.replace(cell_capacity=1), "pallas")(sn))):
+        try:
+            call()
+        except RuntimeError as err:
+            raised[what] = str(err)
+    check("non-finite" in raised.get("nan", ""),
+          f"checked_step let a NaN pass: {raised}")
+    check("overflow" in raised.get("overflow", ""),
+          f"checked_step let an overflow pass: {raised}")
+    emit({"phase": "tools", "step": "checks", "deterministic": done,
+          "checked_step": raised})
+
+
+def tools_native(ft):
+    """FluidSim(method="native") against the port's naive run on the card,
+    and bench --method native."""
+    p, s = ft.scenes.dam_break(n=300, dim=2, jitter=0.2, seed=7)
+    w0 = time.perf_counter()
+    nat = ft.FluidSim(p, s, method="native")
+    build_s = time.perf_counter() - w0
+    nat.step(15)
+    nai = ft.FluidSim(p, s, method="naive")
+    nai.step(15)
+    check(nat.state.pos.device.type == "cuda"
+          and nat.state.pos.dtype == nai.state.pos.dtype,
+          f"native state on {nat.state.pos.device}, {nat.state.pos.dtype}")
+    gap = float(np.abs(nat.get_positions() - nai.get_positions()).max())
+    check(gap <= 1e-5, f"native vs naive after 15 steps: {gap}")
+    rc, lines = cli_call(["bench", "-n", "65536", "--dim", "2",
+                          "--method", "native"])
+    check(rc == 0, f"cli bench native: rc {rc}")
+    emit({"phase": "tools", "step": "native", "particles": s.n,
+          "steps": 15, "max_pos_gap_to_naive": gap, "tol": 1e-5,
+          "first_use_s": build_s, "bench": last_json(lines)})
+
+
+def phase_tools(torch, ft, ft_build, state, params, step_planes_ms):
+    """The user-facing entry points on the card: the CLI's run, resume,
+    bench and render, checkpoints, the renderer, scripts/torch_bench.py,
+    the debug harness and the native engine.  ``state`` is the evolved
+    config-4 state, ``params`` its parameters, ``step_planes_ms`` the
+    run_inc phase's times of step_planes by operating point."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    scene4 = ["--scene", "double_dam_break", "-n", "1000000", "--dim", "3"]
+    ran = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools-") as tmp:
+        saved, latest = tools_run(torch, ft_build, tmp, scene4)
+        ran.append("cli_run")
+        tools_resume(torch, ft, tmp, scene4, latest, saved)
+        del saved
+        ran.append("resume")
+        tools_bench(scene4, step_planes_ms)
+        ran.append("bench")
+        tools_render(torch, tmp, latest, state, params)
+        ran.append("render")
+    tools_checks(torch, ft, state, params)
+    ran.append("checks")
+    tools_native(ft)
+    ran.append("native")
+    emit({"phase": "tools", "ran": ran,
+          "seconds": time.perf_counter() - t0})
+
+
 SOURCES = {
     "occ_rowmax": ("gpufluidsimulator_torch/csrc/occ_rowmax.cu",
                    "gpufluidsimulator_tpu/ops/planes.py:326"),
@@ -1368,12 +1739,13 @@ def main() -> int:
     phase_run(torch, ft, ft_build, ft.scenes.double_dam_break,
               dict(n=1_000_000, dim=3), 20, "double_dam_break_3d_1197770")
     phase_gridded_run(torch, ft, ft_build)
-    state, params, counts_inc, counts_cont = phase_inc_run(torch, ft,
-                                                           ft_build)
+    state, params, counts_inc, counts_cont, step_planes_ms = \
+        phase_inc_run(torch, ft, ft_build)
     results = phase_kernels(torch, ft, facts)
     results_inc = phase_inc_kernels(torch, ft, state, params, facts)
     packed, counts_packed = phase_packed_sweep(torch, ft, ft_build, state,
                                                params, facts)
+    phase_tools(torch, ft, ft_build, state, params, step_planes_ms)
     del state
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -7,9 +7,10 @@ kernel tier (hand-written CUDA kernels on the card).  Ported: ``naive``,
 PyTorch as the reference's is plain XLA), ``pallas``, ``pallas_inc`` (the
 incremental path, ``ops/inc.py``, which ``run``/``rollout`` keep
 planes-resident for a whole call) and ``pallas_inc_cont`` (its
-continuity-density tier).  ``native`` raises ``NotImplementedError``
-naming the ROADMAP item that ports it; ``auto`` resolves exactly as the
-reference's does.
+continuity-density tier); ``auto`` resolves exactly as the reference's
+does.  ``native``, the C++ CPU engine (``oracle/native.py``), steps on the
+host, so as in the reference it lives in ``FluidSim`` only: ``step``,
+``run`` and ``rollout`` refuse it with ``ValueError``.
 
 Every entry point takes ``device`` (default: the card; see
 ``state.resolve_device``) and moves the state there.
@@ -23,11 +24,6 @@ import torch
 from ..ops import naive
 from .params import SimParams
 from .state import DeviceLike, State, resolve_device
-
-# method -> the ROADMAP.md queue-1 item that ports it, by its title
-UNPORTED = {
-    "native": "queue 1, `FluidSim(method=\"native\")`",
-}
 
 
 def _step_naive(state: State, params: SimParams) -> State:
@@ -77,23 +73,15 @@ METHODS = {"naive": _step_naive, "gridded": _step_gridded,
 INC_METHODS = ("pallas_inc", "pallas_inc_cont")
 
 
-def _ported(method: str) -> str:
-    if method in UNPORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to PyTorch yet: ROADMAP.md "
-            f"{UNPORTED[method]}")
-    return method
-
-
 def resolve_method(method: str, n: int) -> str:
     """'auto' picks naive up to 8,192 particles and pallas above, as the
     reference does with every method registered."""
     if method != "auto":
-        if method not in METHODS and method not in UNPORTED:
+        if method not in METHODS:
             raise ValueError(
                 f"unknown method {method!r}; available: "
                 f"{sorted(METHODS)} or 'auto'")
-        return _ported(method)
+        return method
     return "naive" if n <= 8192 else "pallas"
 
 
@@ -160,20 +148,51 @@ def rollout(state: State, params: SimParams, n_steps: int,
 
 class FluidSim:
     """Object facade (init / step / get_positions) over the functional
-    core.  The state moves to ``device`` (default: the card)."""
+    core.  The state moves to ``device`` (default: the card).
+
+    ``method="native"`` steps the C++ CPU engine (``oracle/native.py``,
+    built at first use) on the host in float64; the state it returns is
+    float32 on ``device``.  Raises ``RuntimeError`` when the engine cannot
+    be built: nothing falls back."""
 
     def __init__(self, params: SimParams, state: State, method: str = "auto",
                  device: DeviceLike = None):
         self.params = params
         self.device = resolve_device(device)
         self.state = state.to(self.device)
-        self.method = resolve_method(method, state.n)
+        if method == "native":
+            from ..oracle import native
+            if not native.available():
+                raise RuntimeError(
+                    "native fluidcore engine unavailable: "
+                    f"{native.unavailable_reason()}")
+            self.method = "native"
+        else:
+            self.method = resolve_method(method, state.n)
         # the raw request: run() upgrades 'auto' rollouts at scale
         self._requested = method
 
     def step(self, n: int = 1) -> State:
+        if self.method == "native":
+            return self._step_native(n)
         self.state = run(self.state, self.params, n, self._requested,
                          device=self.device)
+        return self.state
+
+    def _step_native(self, n: int) -> State:
+        from ..oracle import native
+        pos, vel, rho, pres = native.run(
+            self.state.pos.to("cpu", torch.float64).numpy(),
+            self.state.vel.to("cpu", torch.float64).numpy(),
+            self.params, n)
+
+        def f32(a):
+            return torch.from_numpy(a.astype(np.float32)).to(self.device)
+
+        self.state = State(pos=f32(pos), vel=f32(vel), rho=f32(rho),
+                           pres=f32(pres), ids=self.state.ids,
+                           overflow=torch.zeros((), dtype=torch.int32,
+                                                device=self.device))
         return self.state
 
     def get_positions(self) -> np.ndarray:

@@ -487,8 +487,8 @@ def test_facade_and_rollout():
 def test_guards(monkeypatch):
     """IncState carries the one-card state of both tiers (the continuity
     tier's rhop and age, None on the summation tier) and step_planes takes
-    no sharded arguments; float32 ids cap to_planes; an unported method
-    raises naming ROADMAP."""
+    no sharded arguments; float32 ids cap to_planes; run refuses the
+    facade-only method native with ValueError, as the reference does."""
     assert tinc.IncState._fields == ("fields6", "idp", "overflow", "rhop",
                                      "age")
     assert list(inspect.signature(tinc.step_planes).parameters) == [
@@ -497,7 +497,7 @@ def test_guards(monkeypatch):
     geom = tpm.geometry(tp)
     s = tinc.to_planes(ts.pos, ts.vel, ts.ids, tp, geom)
     assert s.rhop is None and s.age is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="native"):
         tfs.run(ts, tp, 2, method="native", device="cpu")
     monkeypatch.setattr(tinc, "MAX_F32_ID", ts.n - 1)
     with pytest.raises(ValueError, match="float32"):
