@@ -61,9 +61,28 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               pallas_inc and pallas_inc_cont, checked_step on a NaN and an
               overflow; FluidSim(method="native") against naive and
               `bench --method native`
-  7. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
+  7. sharded  spatial sharding (parallel/): sharded_parity runs config 4
+              with two engineered slab crossers on a 4-slab mesh of the
+              card (make_mesh(devices=[cuda:0] * 4)) for 10 steps of
+              pallas_inc and pallas_inc_cont and 5 of pallas, against the
+              same state unsharded (positions by id within 1e-5, ids
+              conserved, overflow and mig_overflow 0, each crosser on its
+              neighbour slab), and one sharded pallas_inc step under sync
+              debug mode "error"; slab_force holds force_step and
+              force_step_cont on the planes of slabs 2 and 3 (x origin not
+              bounds_min[0], the global walls, ghost lanes filled, velocity
+              noise) against their plain versions; sharded_run runs config
+              5 (4,825,800 particles) on 8 slabs and on 1 for 100 steps of
+              pallas_inc and pallas_inc_cont: ms/step, rate, peak memory,
+              slab counts, both counters 0, the exchanges' share of the
+              step (CUDA events around each exchange); sharded_tools runs
+              `run --sharded` through the CLI and resumes a 4-slab
+              run_sharded from save_sharded / load_sharded bitwise
+  8. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
      numbers, the mode the steps launch, and holds the row-maxima-only
-     call's under row_maxima_only), the card line, and the final ok line.
+     call's under row_maxima_only; every entry has launches_sharded and
+     launches_sharded_cont, its launches per config-5 step on 8 slabs),
+     the card line, and the final ok line.
 Phase 2 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
 then sum) on the card against the port's CPU path, with the carried rho,
 one FluidSim(method="gridded") step (2D n=600, 3D n=1,200) and the packed
@@ -1674,6 +1693,362 @@ def phase_tools(torch, ft, ft_build, state, params, step_planes_ms):
           "seconds": time.perf_counter() - t0})
 
 
+# the sharded phases: config 4 on 4 slabs of the card against the same
+# state unsharded; config 5 on 8 slabs (the v5e-8's layout) and on 1
+SHARD_PARITY = {"pallas_inc": 10, "pallas_inc_cont": 10, "pallas": 5}
+SHARD_TOL = 1e-5              # tests/test_sharded_smoke.py's bar
+SHARD_RUN_STEPS = 100
+SHARD_RUN_SLABS = (8, 1)
+
+
+def cuda_mesh(torch, n):
+    from gpufluidsimulator_torch.parallel import mesh as meshmod
+    return meshmod.make_mesh(devices=[torch.device("cuda", 0)] * n)
+
+
+def sharded_state4(torch, ft):
+    """Config 4 on the card, diagnostics off, with particles 0 and 1 made
+    crossers of the slab 0/1 face of a 4-slab mesh: above the left column,
+    0.4 cell from the face, flying toward it at 0.25 cell a step, one from
+    each side (tests/test_sharded.py:211-247)."""
+    from gpufluidsimulator_torch.parallel import sharded
+    params, state = ft.scenes.double_dam_break(n=1_000_000, dim=3,
+                                               device="cuda")
+    params = params.replace(diagnostics=False)
+    _, nxl = sharded.local_params(params, 4)
+    xb = params.bounds_min[0] + nxl * params.cell
+    v = 0.25 * params.cell / params.dt
+    pos = state.pos.clone()
+    vel = state.vel.clone()
+    pos[0] = torch.tensor([xb - 0.4 * params.cell, 0.86, 0.3])
+    vel[0] = torch.tensor([v, 0.0, 0.0])
+    pos[1] = torch.tensor([xb + 0.4 * params.cell, 0.95, 0.3])
+    vel[1] = torch.tensor([-v, 0.0, 0.0])
+    return params, ft.make_state(pos, vel, device="cuda")
+
+
+def shard_counters(sstate) -> tuple:
+    return (sum(int(o) for o in sstate.overflow),
+            sum(int(o) for o in sstate.mig_overflow))
+
+
+def slab_holds(torch, sstate, d, pid) -> bool:
+    return bool((sstate.ids[d] == pid).any())
+
+
+def phase_sharded_parity(torch, ft, ft_build):
+    """Config 4 (+ two crossers) on a 4-slab mesh of the card against the
+    same state unsharded: 10 steps of pallas_inc and pallas_inc_cont, 5 of
+    pallas; positions by id within SHARD_TOL, ids conserved, both counters
+    0, the crossers on their neighbour slab.  Then one sharded pallas_inc
+    step under sync debug mode "error"."""
+    from gpufluidsimulator_torch.ops import inc
+    from gpufluidsimulator_torch.ops import planes as pm
+    from gpufluidsimulator_torch.parallel import mesh as meshmod
+    from gpufluidsimulator_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    params, state = sharded_state4(torch, ft)
+    n = state.n
+    mesh = cuda_mesh(torch, 4)
+    for method, steps in SHARD_PARITY.items():
+        want = positions_by_id(ft.run(state, params, steps, method=method))
+        sim = sharded.ShardedSim(params, state, mesh=mesh, method=method)
+        check(slab_holds(torch, sim.sstate, 0, 0)
+              and slab_holds(torch, sim.sstate, 1, 1),
+              f"sharded {method}: the crossers start on slabs 0 and 1")
+        ft_build.reset_launches()
+        sim.step(steps)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ft_build.launches.items() if v}
+        crossed = (slab_holds(torch, sim.sstate, 1, 0)
+                   and slab_holds(torch, sim.sstate, 0, 1))
+        g = sim.gather()               # raises unless n ids are live
+        ids_ok = torch.equal(g.ids.long(), torch.arange(n, device="cuda"))
+        err = float((g.pos - want).abs().max())
+        ovf, mig = shard_counters(sim.sstate)
+        emit({"phase": "sharded_parity", "method": method, "slabs": 4,
+              "particles": n, "steps": steps, "max_abs_err_pos": err,
+              "tol": SHARD_TOL, "ids_conserved": ids_ok, "overflow": ovf,
+              "mig_overflow": mig, "crossers_migrated": crossed,
+              "slab_counts": [int((i >= 0).sum()) for i in
+                              sim.sstate.ids],
+              "launches": counts})
+        check(err <= SHARD_TOL and ids_ok and ovf == 0 and mig == 0
+              and crossed,
+              f"sharded {method}: pos err {err}, ids {ids_ok}, overflow "
+              f"{ovf}, mig_overflow {mig}, crossers migrated {crossed}")
+        del sim, g, want
+    # one sharded pallas_inc step with no wait for the card
+    sstate, _ = sharded.distribute(params, state, mesh)
+    params_loc, nxl = sharded.local_params(params, 4)
+    geom = pm.geometry(params_loc)
+    n_cap = sstate.pos[0].shape[0]
+    ex = sharded.make_exchange(mesh, nxl)
+    x0 = {d: sharded.slab_origin(params, nxl, d) for d in range(4)}
+    states = {d: inc.to_planes(sstate.pos[d], sstate.vel[d], sstate.ids[d],
+                               params_loc, geom, x_origin=x0[d],
+                               active=sstate.ids[d] >= 0)
+              for d in range(4)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        meshmod.lockstep({d: inc.step_phases(
+            states[d], params_loc, geom, inc.mover_capacity(n_cap),
+            x_origin=x0[d], exchange=ex, wall_params=params,
+            mig_cap=max(128, n_cap // 64)) for d in range(4)})
+    except RuntimeError as err:
+        check(False, f"the sharded step waited for the card: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "sharded_sync", "slabs": 4, "method": "pallas_inc",
+          "sync_debug": "error", "waited": False,
+          "seconds": time.perf_counter() - t0})
+    return params, state
+
+
+def phase_slab_force(torch, ft, params, state):
+    """force_step and force_step_cont on the planes of slabs 2 (inner) and
+    3 (the right wall's) of a 4-slab mesh, whose x origin is not
+    bounds_min[0], with the global walls, ghost lanes from the neighbours:
+    against accel_step_plain / accel_step_cont_plain on the same inputs,
+    at check_force_step's tolerances.  The velocities get numpy-seeded
+    noise of 0.3 cell a step, so particles leave their cells, the slab
+    (slab 3's left face cuts the right column) and the right wall."""
+    from gpufluidsimulator_torch.ops import inc, sph
+    from gpufluidsimulator_torch.ops import planes as pm
+    from gpufluidsimulator_torch.parallel import sharded
+
+    rng = np.random.default_rng(7)
+    noise = rng.normal(size=tuple(state.vel.shape)).astype(np.float32)
+    state = state._replace(vel=state.vel + torch.from_numpy(noise).cuda()
+                           * (0.3 * params.cell / params.dt))
+    mesh = cuda_mesh(torch, 4)
+    sstate, _ = sharded.distribute(params, state, mesh)
+    params_loc, nxl = sharded.local_params(params, 4)
+    geom = pm.geometry(params_loc)
+    ex = sharded.make_exchange(mesh, nxl)
+    x0 = {d: sharded.slab_origin(params, nxl, d) for d in range(4)}
+    p6 = ex({d: pm.halo_x(inc.to_planes(
+        sstate.pos[d], sstate.vel[d], sstate.ids[d], params_loc, geom,
+        x_origin=x0[d], active=sstate.ids[d] >= 0).fields6)
+        for d in range(4)}, 3)
+    occ = {d: pm.occupancy_bounds(p6[d], params_loc, geom) for d in p6}
+    rho = ex({d: pm.halo_x(sph.density_planes(p6[d][:3], *occ[d],
+                                              params_loc, geom))[None]
+              for d in p6}, 0)
+    for d in (2, 3):
+        args = (p6[d], rho[d][0])
+        kw = dict(x_origin=x0[d], wall_params=params)
+        for name, kern, plain in (
+                ("force_step", sph.accel_step, sph.accel_step_plain),
+                ("force_step_cont", sph.accel_step_cont,
+                 sph.accel_step_cont_plain)):
+            got = kern(*args, *occ[d], params_loc, geom, **kw)
+            want = plain(*args, params_loc, geom, **kw)
+            r = check_force_step(torch, got, want, p6[d], params_loc, geom,
+                                 f"{name} on slab {d}")
+            flag = got[-1] > 0.5
+            x = got[0][0]
+            x1 = x0[d] + sharded.slab_width(params, nxl)
+            emit({"phase": "slab_force", "kernel": name, "slab": d,
+                  "x_origin": x0[d], "slab_end": x1,
+                  "walls_x": [params.bounds_min[0], params.bounds_max[0]],
+                  "movers": int(flag.sum()),
+                  "slab_leavers": int((flag & ((x < x0[d]) | (x >= x1)))
+                                      .sum()),
+                  **r})
+    del p6, rho, occ
+
+
+class ExchangeClock:
+    """``parallel.mesh.lockstep`` with each exchange timed: CUDA events
+    around every exchange and every whole step (device time, as the card
+    ran them) and the host's time inside the exchange calls."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.steps = []
+        self.exchanges = []
+        self.host_s = 0.0
+
+    def lockstep(self, steps):
+        from gpufluidsimulator_torch.parallel import mesh as meshmod
+        torch = self.torch
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+
+        def timed(exchange):
+            def run(payloads):
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                h = time.perf_counter()
+                e[0].record()
+                out = exchange(payloads)
+                e[1].record()
+                self.host_s += time.perf_counter() - h
+                self.exchanges.append(e)
+                return out
+            return run
+
+        wrapped = {d: wrap_exchanges(g, timed) for d, g in steps.items()}
+        out = meshmod.lockstep(wrapped)
+        ev[1].record()
+        self.steps.append(ev)
+        return out
+
+    def totals(self):
+        """(step ms summed, exchange ms summed)."""
+        self.torch.cuda.synchronize()
+        return (sum(a.elapsed_time(b) for a, b in self.steps),
+                sum(a.elapsed_time(b) for a, b in self.exchanges))
+
+
+def wrap_exchanges(gen, timed):
+    """A step generator whose exchanges go through ``timed`` (lockstep
+    calls the first slab's, once for all slabs)."""
+    try:
+        msg = next(gen)
+        while True:
+            exchange, payload = msg
+            msg = gen.send((yield timed(exchange), payload))
+    except StopIteration as stop:
+        return stop.value
+
+
+def phase_sharded_run(torch, ft, ft_build):
+    """Config 5 (scripts/bench_configs.py:36-37) on 8 slabs of the card and
+    on 1: 100 steps of pallas_inc and of pallas_inc_cont, timed by CUDA
+    events around the steps (the conversions to and from planes excluded),
+    the exchanges' share of that time, peak memory, slab counts, both
+    counters 0, ids conserved, and the two meshes' positions within
+    SHARD_TOL of each other by id.  Returns the 8-slab launch counts per
+    step of each method."""
+    from gpufluidsimulator_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    params, state = ft.scenes.double_dam_break(n=4_000_000, dim=3,
+                                               device="cuda")
+    params = params.replace(diagnostics=False)
+    n = state.n
+    per_step = {}
+    ms_by = {}
+    first_pos = {}           # method -> the first mesh's gathered positions
+    real_lockstep = sharded.lockstep
+    for n_slabs in SHARD_RUN_SLABS:
+        mesh = cuda_mesh(torch, n_slabs)
+        sstate, _ = sharded.distribute(params, state, mesh)
+        slab_counts = [int((i >= 0).sum()) for i in sstate.ids]
+        for method in ("pallas_inc", "pallas_inc_cont"):
+            cont = method == "pallas_inc_cont"
+            sharded.run_sharded_inc(sstate, params, mesh, 2,
+                                    continuity=cont)   # first touch
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ft_build.reset_launches()
+            clock = ExchangeClock(torch)
+            sharded.lockstep = clock.lockstep
+            w0 = time.perf_counter()
+            try:
+                out = sharded.run_sharded_inc(sstate, params, mesh,
+                                              SHARD_RUN_STEPS,
+                                              continuity=cont)
+            finally:
+                sharded.lockstep = real_lockstep
+            step_ms, ex_ms = clock.totals()
+            wall = time.perf_counter() - w0
+            counts = dict(ft_build.launches)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            ovf, mig = shard_counters(out)
+            g = sharded.gather(out, n)
+            ids_ok = torch.equal(g.ids.long(),
+                                 torch.arange(n, device="cuda"))
+            # gather orders by id: the meshes' positions line up row by
+            # row (kept on the host, out of the next run's peak memory)
+            if method in first_pos:
+                pos_err = float((g.pos.cpu() - first_pos.pop(method))
+                                .abs().max())
+            else:
+                first_pos[method] = g.pos.cpu()
+                pos_err = None
+            ms = step_ms / SHARD_RUN_STEPS
+            ms_by[(n_slabs, method)] = ms
+            if n_slabs == 8:
+                per_step[method] = {k: v / SHARD_RUN_STEPS
+                                    for k, v in counts.items()}
+            emit({"phase": "sharded_run", "scene":
+                  "double_dam_break_3d_4825800", "method": method,
+                  "slabs": n_slabs, "particles": n,
+                  "steps": SHARD_RUN_STEPS, "ms_per_step": ms,
+                  "particle_steps_per_s": n * 1e3 / ms,
+                  "exchange_ms_per_step": ex_ms / SHARD_RUN_STEPS,
+                  "exchange_share": ex_ms / step_ms,
+                  "exchange_host_s": clock.host_s, "wall_s": wall,
+                  "peak_mem_gb": peak, "slab_counts": slab_counts,
+                  "n_cap": int(sstate.pos[0].shape[0]),
+                  "overflow": ovf, "mig_overflow": mig,
+                  "ids_conserved": ids_ok,
+                  "max_abs_err_pos_vs_" + str(SHARD_RUN_SLABS[0]): pos_err,
+                  "tol": SHARD_TOL, "launches": counts})
+            check(ovf == 0 and mig == 0 and ids_ok
+                  and (pos_err is None or pos_err <= SHARD_TOL),
+                  f"sharded_run {method} x{n_slabs}: overflow {ovf}, "
+                  f"mig_overflow {mig}, ids conserved {ids_ok}, positions "
+                  f"{pos_err} from x{SHARD_RUN_SLABS[0]}")
+            del out, g
+        del sstate
+    for method in ("pallas_inc", "pallas_inc_cont"):
+        emit({"phase": "sharded_cost", "method": method,
+              "ms_per_step_8": ms_by[(8, method)],
+              "ms_per_step_1": ms_by[(1, method)],
+              "ratio": ms_by[(8, method)] / ms_by[(1, method)],
+              "seconds": time.perf_counter() - t0})
+    return per_step
+
+
+def phase_sharded_tools(torch, ft):
+    """``run --sharded`` through the CLI at small scale on the card (one
+    slab per visible card), and save_sharded / load_sharded in the middle
+    of a 4-slab run_sharded, resumed bitwise against the uninterrupted run
+    (tests/test_sharded.py:250-268)."""
+    import os
+    import tempfile
+    from gpufluidsimulator_torch.parallel import sharded
+    from gpufluidsimulator_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    rc, lines = cli_call(["run", "--sharded", "--scene", "dam_break", "-n",
+                          "20000", "--dim", "3", "--steps", "20",
+                          "--report-every", "10", "--method", "pallas_inc"])
+    final = last_json(lines)
+    head = [ln for ln in lines if ln.startswith("scene=")]
+    n_cards = torch.cuda.device_count()
+    check(rc == 0 and bool(head)
+          and f"method=sharded-pallas_inc x{n_cards}" in head[0]
+          and final["overflow"] == 0 and not final["nan"],
+          f"run --sharded: rc {rc}, {head}, {final}")
+    params, state = ft.scenes.dam_break(n=50_000, dim=3, jitter=0.2, seed=2,
+                                        device="cuda")
+    mesh = cuda_mesh(torch, 4)
+    sstate, m_cap = sharded.distribute(params, state, mesh)
+    full = sharded.run_sharded(sstate, params, mesh, 20, m_cap)
+    half = sharded.run_sharded(sstate, params, mesh, 10, m_cap)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard-") as tmp:
+        path = os.path.join(tmp, "shard.npz")
+        checkpoint.save_sharded(path, half, params, step=10,
+                                n_total=state.n)
+        loaded, p2, step, n_total = checkpoint.load_sharded(path, mesh)
+    resumed = sharded.run_sharded(loaded, p2, mesh, 10, m_cap)
+    bitwise = all(torch.equal(a, b) for fa, fb in zip(full, resumed)
+                  for a, b in zip(fa, fb))
+    check(bitwise and (step, n_total) == (10, state.n) and p2 == params,
+          "save_sharded / load_sharded: the resumed run differs")
+    emit({"phase": "sharded_tools", "cli": head[0].strip(),
+          "cli_final": final, "resume_bitwise": bitwise,
+          "resume_particles": state.n, "slabs": 4,
+          "seconds": time.perf_counter() - t0})
+
+
 SOURCES = {
     "occ_rowmax": ("gpufluidsimulator_torch/csrc/occ_rowmax.cu",
                    "gpufluidsimulator_tpu/ops/planes.py:326"),
@@ -1747,6 +2122,11 @@ def main() -> int:
                                                params, facts)
     phase_tools(torch, ft, ft_build, state, params, step_planes_ms)
     del state
+    params4, state4 = phase_sharded_parity(torch, ft, ft_build)
+    phase_slab_force(torch, ft, params4, state4)
+    del state4
+    sharded_counts = phase_sharded_run(torch, ft, ft_build)
+    phase_sharded_tools(torch, ft)
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1778,6 +2158,10 @@ def main() -> int:
                          **picked(results_inc[name]))
             if name not in CONT:
                 entry["launches_pallas_inc_cont"] = counts_cont[name]
+        # launches per sharded step of config 5 on 8 slabs
+        entry["launches_sharded"] = sharded_counts["pallas_inc"][name]
+        entry["launches_sharded_cont"] = \
+            sharded_counts["pallas_inc_cont"][name]
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

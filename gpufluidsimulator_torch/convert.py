@@ -65,11 +65,11 @@ def planes_from_numpy(planes, slot, ok, occ_q, occ_s,
 
 
 def inc_state_from_numpy(fields6, idp, overflow, device: DeviceLike = None,
-                         rhop=None, age=None):
+                         rhop=None, age=None, mig_overflow=0):
     """The incremental path's carried state from a reference IncState's
-    fields6, idp and overflow (as numpy), and on the continuity tier its
-    rhop (numpy) and age (any integer scalar; the port carries a host
-    int)."""
+    fields6, idp, overflow and mig_overflow (as numpy), and on the
+    continuity tier its rhop (numpy) and age (any integer scalar; the port
+    carries a host int)."""
     from .ops.inc import IncState
     dev = resolve_device(device)
 
@@ -79,5 +79,6 @@ def inc_state_from_numpy(fields6, idp, overflow, device: DeviceLike = None,
     return IncState(fields6=t(fields6, torch.float32),
                     idp=t(idp, torch.float32),
                     overflow=t(overflow, torch.int32).reshape(()),
+                    mig_overflow=t(mig_overflow, torch.int32).reshape(()),
                     rhop=None if rhop is None else t(rhop, torch.float32),
                     age=None if age is None else int(age))

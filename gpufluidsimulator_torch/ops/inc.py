@@ -36,6 +36,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -78,6 +79,9 @@ class IncState(NamedTuple):
     fields6: torch.Tensor       # (6, K, pz, n_bx, py, 128) x,y,z,vx,vy,vz
     idp: torch.Tensor           # (K, pz, n_bx, py, 128) particle id as f32
     overflow: torch.Tensor      # () int32 capacity drops (movers, cells)
+    mig_overflow: torch.Tensor  # () int32 movers a sharded slab could not
+    #                             ship to its neighbour (mig_cap); 0 on one
+    #                             card, apart from ``overflow``
     rhop: Optional[torch.Tensor] = None   # continuity tier: the carried
     #                             density plane (K, ...); None otherwise
     age: Optional[int] = None   # continuity tier: steps since to_planes, a
@@ -89,22 +93,24 @@ class IncState(NamedTuple):
 # slot geometry and mover detection
 # ---------------------------------------------------------------------------
 
-def new_cids(fields6: torch.Tensor, params: SimParams,
-             geom: PlaneGeom) -> torch.Tensor:
+def new_cids(fields6: torch.Tensor, params: SimParams, geom: PlaneGeom,
+             x_origin=None) -> torch.Tensor:
     """Per-slot linear cell id from the position channels (the elementwise
-    form of planes.cell_linear_parts)."""
+    form of planes.cell_linear_parts; ``x_origin`` a slab's)."""
     pos = torch.stack([fields6[d].reshape(-1) for d in range(params.dim)],
                       dim=-1)
-    return pm.cell_linear_parts(pos, params, geom).reshape(fields6.shape[1:])
+    return pm.cell_linear_parts(pos, params, geom, x_origin) \
+        .reshape(fields6.shape[1:])
 
 
-def detect_movers(fields6, idp, params: SimParams, geom: PlaneGeom):
+def detect_movers(fields6, idp, params: SimParams, geom: PlaneGeom,
+                  x_origin=None):
     """-> (kept6, kept_id, flags): ``flags`` marks the interior slots whose
     particle now belongs to another cell; the kept planes have those slots
     and every non-interior slot blanked."""
     valid = (fields6[0] < SENTINEL * 0.5) \
         & pm.interior_mask(geom, fields6.device)[None]
-    flags = valid & (new_cids(fields6, params, geom)
+    flags = valid & (new_cids(fields6, params, geom, x_origin)
                      != own_cid(geom, fields6.device)[None])
     keep = valid & ~flags
     fill = torch.tensor([SENTINEL] * 3 + [0.0] * 3, device=fields6.device)
@@ -205,19 +211,22 @@ class Arrivals(NamedTuple):
     starts: torch.Tensor      # (cells + 1,) int32
 
 
-def arrival_planes(movers, m, params: SimParams,
-                   geom: PlaneGeom) -> Arrivals:
+def arrival_planes(movers, m, params: SimParams, geom: PlaneGeom,
+                   x_origin=None, live=None) -> Arrivals:
     """Group the first ``m`` mover rows by target cell: one sort of their
     cell ids (dead rows keyed ``cells``, past every cell) and a per-cell
     start table.  The reference's second sort and arrival planes have no
     counterpart: ``consolidate`` reads the movers through ``order``.  All
     ``m_cap`` rows are sorted, where the reference picks a smaller prefix
     when ``m`` fits one (inc.py:702-723): picking it here would read ``m``
-    on the host, a wait for the card every step."""
+    on the host, a wait for the card every step.  A sharded slab passes
+    its ``x_origin`` and the ``live`` mask of its merged movers
+    (``merge_movers``), whose live rows are no prefix."""
     cap = movers.shape[1]
     pos = movers[:params.dim].T
-    cid = pm.cell_linear_parts(pos, params, geom)
-    live = torch.arange(cap, device=movers.device) < m
+    cid = pm.cell_linear_parts(pos, params, geom, x_origin)
+    if live is None:
+        live = torch.arange(cap, device=movers.device) < m
     cid = torch.where(live, cid, geom.cells)
     cid_s, order = torch.sort(cid)
     starts = torch.searchsorted(
@@ -333,18 +342,22 @@ def consolidate(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
 # ---------------------------------------------------------------------------
 
 def to_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
+              x_origin=None, active=None,
               continuity: bool = False) -> IncState:
     """Full rebuild (``build_planes`` with the id channel) into the carried
-    state.  ``continuity``: attach the continuity tier's carried density,
+    state; a sharded slab's with its ``x_origin`` and ``active`` rows.
+    ``continuity``: attach the continuity tier's carried density,
     zeros at age 0 (the first step's seeding sweep fills it before the EOS
     reads it)."""
     if pos.shape[0] > MAX_F32_ID:
         raise ValueError(f"the planes carry ids as float32, exact for at "
                          f"most {MAX_F32_ID} particles; got {pos.shape[0]}")
-    table = pm.build_planes(pos, vel, ids, params, geom, with_ids=True)
+    table = pm.build_planes(pos, vel, ids, params, geom, with_ids=True,
+                            x_origin=x_origin, active=active)
     idp = table.planes[6]
     return IncState(fields6=table.planes[:6], idp=idp,
                     overflow=table.overflow,
+                    mig_overflow=torch.zeros_like(table.overflow),
                     rhop=torch.zeros_like(idp) if continuity else None,
                     age=0 if continuity else None)
 
@@ -390,7 +403,8 @@ def resums(state: IncState, params: SimParams) -> bool:
 
 def step_planes(state: IncState, params: SimParams, geom: PlaneGeom,
                 m_cap: int) -> IncState:
-    """One SPH step in plane space (one card).
+    """One SPH step in plane space, on one card (``step_phases`` without
+    an exchange).
 
     Continuity tier (``state.rhop`` set): the EOS reads the carried rho
     plane, and the density sweep runs only when it must seed or re-sync
@@ -401,32 +415,123 @@ def step_planes(state: IncState, params: SimParams, geom: PlaneGeom,
 
     The halo lanes of ``state.fields6`` (and of the carried rho) are
     refilled in place (they hold no particles of their own)."""
+    return sph.one_slab(step_phases(state, params, geom, m_cap))
+
+
+def step_phases(state: IncState, params: SimParams, geom: PlaneGeom,
+                m_cap: int, x_origin=None, exchange=None,
+                wall_params: SimParams = None, mig_cap: int = 0):
+    """``step_planes`` as a generator, the sharded step of one slab
+    (``parallel/sharded.py``), as the reference's (inc.py:1122-1221):
+    ``x_origin`` is the slab's binning origin, ``wall_params`` holds the
+    global walls, and ``exchange`` (``parallel.sharded.SlabExchange``,
+    None for a mesh of one slab) is how the slabs talk.  The step yields
+    ``(exchange, payload)`` and takes back the exchange's result
+    (``parallel.mesh.lockstep``), at
+      1. the position / velocity ghost lanes, before the occupancy bounds;
+      2. the rho ghost lanes, after ``halo_x``, before the force step;
+      3. the slab-leaving movers, after ``compact`` (``mig_cap`` rows each
+         way; their loss counted in ``mig_overflow``).
+    Without ``exchange`` it yields nothing: one card's step."""
     continuity = state.rhop is not None
     planes6 = pm.halo_x(state.fields6)
+    if exchange is not None:
+        planes6 = yield exchange.fields(3), planes6
     occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
     if not continuity or resums(state, params):
         rho_p = sph.density_planes(planes6[:3], occ_q, occ_s, params, geom)
     else:
         rho_p = state.rhop
     rho_h = pm.halo_x(rho_p)
+    if exchange is not None:
+        rho_h = (yield exchange.fields(0), rho_h[None])[0]
     if continuity:
-        new6, rho_new, flagp = sph.accel_step_cont(planes6, rho_h, occ_q,
-                                                   occ_s, params, geom)
+        new6, rho_new, flagp = sph.accel_step_cont(
+            planes6, rho_h, occ_q, occ_s, params, geom, x_origin,
+            wall_params)
         channels = [*new6, state.idp, rho_new]
     else:
         new6, flagp = sph.accel_step(planes6, rho_h, occ_q, occ_s, params,
-                                     geom)
+                                     geom, x_origin, wall_params)
         rho_new = None
         channels = [*new6, state.idp]
     # the flagged movers straight out of the unblanked post-step planes
     # (flagp is 0 on every slot that is not interior)
     movers, m, staged_total = compact(channels, flagp, m_cap)
-    arr = arrival_planes(movers, m, params, geom)
+    live = None
+    mig_overflow = state.mig_overflow
+    if exchange is not None:
+        width = float(np.float32(geom.nx * params.cell))
+        movers, live, lost = yield (exchange.movers(width, mig_cap),
+                                    (movers, m, x_origin))
+        mig_overflow = mig_overflow + lost
+    arr = arrival_planes(movers, m, params, geom, x_origin, live)
     *cons, dropped = consolidate(new6, state.idp, flagp, arr, geom, rho_new)
     overflow = state.overflow + (staged_total - m) + dropped
     return IncState(fields6=cons[0], idp=cons[1], overflow=overflow,
+                    mig_overflow=mig_overflow,
                     rhop=cons[2] if continuity else None,
                     age=state.age + 1 if continuity else None)
+
+
+# ---------------------------------------------------------------------------
+# slab-crossing movers (sharded mode)
+# ---------------------------------------------------------------------------
+
+def pack_movers(movers, m, x_origin: float, x_end: float, mig_cap: int):
+    """One slab's half of the mover exchange
+    (``parallel.sharded.exchange_movers``) before the transfer: group the
+    live mover rows into stay / left (x < x_origin) / right (x >= x_end) /
+    dead, as the reference's one unstable sort does (here a stable sort of
+    the group key and a gather), and pack the first ``mig_cap`` leavers of
+    each side into an (nf, mig_cap) buffer that ships ``id + 1`` in row 6,
+    so that the zeros a mesh edge receives decode as dead rows.  Returns
+    (rows with every non-stayer's id -1, buf_left, buf_right, lost), lost
+    the leavers past ``mig_cap`` (a () int32 tensor)."""
+    nf, cap = movers.shape
+    dev = movers.device
+    jdx = torch.arange(cap, device=dev)
+    live = jdx < m
+    x = movers[0]
+    go_l = live & (x < x_origin)
+    go_r = live & (x >= x_end)
+    key = go_l.to(torch.int32) + 2 * go_r.to(torch.int32) \
+        + torch.where(live, 0, 3).to(torch.int32)
+    key_s, order = torch.sort(key, stable=True)
+    rows = movers[:, order]
+    n_stay = torch.sum(key_s == 0)
+    n_l = torch.sum(key_s == 1)
+    n_r = torch.sum(key_s == 2)
+    ar = torch.arange(mig_cap, device=dev)
+
+    def pack(start, count):
+        mask = ar < torch.clamp_max(count, mig_cap)
+        take = torch.clamp(start + ar, 0, cap - 1)
+        buf = torch.where(mask[None, :], rows[:, take], 0.0)
+        buf[6] = torch.where(mask, buf[6] + 1.0, 0.0)
+        return buf
+
+    buf_l = pack(n_stay, n_l)
+    buf_r = pack(n_stay + n_l, n_r)
+    lost = (torch.clamp_min(n_l - mig_cap, 0)
+            + torch.clamp_min(n_r - mig_cap, 0)).to(torch.int32)
+    rows[6] = torch.where(jdx < n_stay, rows[6], -1.0)
+    return rows, buf_l, buf_r, lost
+
+
+def merge_movers(rows, from_left, from_right, mig_cap: int):
+    """One slab's half of the mover exchange after the transfer: the
+    stayers' rows, then the buffers that came from the left and the right
+    neighbour (None at a mesh edge: zeros, which decode as dead rows), ids
+    decoded.  Returns (merged (nf, M + 2 mig_cap), live mask)."""
+    def edge(buf):
+        return rows.new_zeros((rows.shape[0], mig_cap)) if buf is None \
+            else buf
+
+    arrived = torch.cat([edge(from_left), edge(from_right)], dim=1)
+    arrived[6] -= 1.0
+    merged = torch.cat([rows, arrived], dim=1)
+    return merged, merged[6] >= 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +540,8 @@ def step_planes(state: IncState, params: SimParams, geom: PlaneGeom,
 
 def _convert_in(state, params: SimParams, geom: PlaneGeom,
                 continuity: bool) -> IncState:
-    s = to_planes(state.pos, state.vel, state.ids, params, geom, continuity)
+    s = to_planes(state.pos, state.vel, state.ids, params, geom,
+                  continuity=continuity)
     return s._replace(overflow=s.overflow + state.overflow)
 
 

@@ -115,22 +115,25 @@ def lattice_dx(params: SimParams) -> float:
 
 
 def cell_linear_parts(pos: torch.Tensor, params: SimParams,
-                      geom: PlaneGeom) -> torch.Tensor:
+                      geom: PlaneGeom, x_origin=None) -> torch.Tensor:
     """(N, d) -> (N,) int32 linear cell index in the allocated plane frame.
 
     Keeps the reference's float32 ``floor((pos - lo) * (1/cell))`` form, so
     both packages bin every particle into the same cell: a Python scalar
     enters a float32 op rounded to float32.  The scalars stay on the host
     (a tensor built from them on the card would be a synchronizing copy).
+    ``x_origin`` (a float32 value as a Python float) replaces
+    ``bounds_min[0]`` as the x origin: a sharded slab's.
     """
     lo = params.bounds_min
     cax = params.cells_axis
 
-    def axis(d, n):
-        c = torch.floor((pos[:, d] - lo[d]) * (1.0 / cax[d])).to(torch.int32)
+    def axis(d, n, origin=None):
+        base = lo[d] if origin is None else origin
+        c = torch.floor((pos[:, d] - base) * (1.0 / cax[d])).to(torch.int32)
         return torch.clamp(c, 0, n - 1)
 
-    x = axis(0, geom.nx)
+    x = axis(0, geom.nx, x_origin)
     xo = x // TILE_X
     xi = x % TILE_X + 1                              # lane 0 = halo/ghost
     y = axis(1, geom.ny) + ROWS_PER_BLOCK            # ghost block below
@@ -198,7 +201,8 @@ class PlaneTable(NamedTuple):
 
 
 def build_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
-                 with_ids: bool = False) -> PlaneTable:
+                 with_ids: bool = False, x_origin=None,
+                 active=None) -> PlaneTable:
     """Bin particles into rank planes.
 
     Sort by cell id, rank within the cell from a cummax over run starts
@@ -210,6 +214,11 @@ def build_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
     ``with_ids`` adds the particle id as a 7th f32 plane channel (empty
     slots 0; the x-channel sentinel marks them), as the incremental path
     carries identity in the planes.
+
+    Sharded slabs: ``x_origin`` is the slab's binning origin
+    (``cell_linear_parts``) and ``active`` (N,) bool marks live rows; the
+    others (free slots: id -1, parked at the sentinel) bind to no cell,
+    sort past every live row and are not counted as overflow.
     """
     from . import route
 
@@ -218,7 +227,9 @@ def build_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
     cells = geom.cells
     dim = params.dim
 
-    cid = cell_linear_parts(pos, params, geom).to(torch.int64)
+    cid = cell_linear_parts(pos, params, geom, x_origin).to(torch.int64)
+    if active is not None:
+        cid = torch.where(active, cid, cells)       # one past every cell
     cid_sorted, order = torch.sort(cid)
     idx = torch.arange(n, dtype=torch.int64, device=pos.device)
     starts = torch.where(cid_sorted[1:] != cid_sorted[:-1], idx[1:],

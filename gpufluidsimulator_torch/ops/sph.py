@@ -17,6 +17,7 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -329,16 +330,22 @@ def accel_planes(field_planes: torch.Tensor, rho_planes: torch.Tensor,
 MAX_KERNEL_OBSTACLES = 4
 
 
-def _slab(params: SimParams):
-    """[binning x origin, slab end) of the mover flag's slab test: the
-    global domain padded by one cell, which no particle leaves on a single
-    card (collide clamps x inside the walls) — the reference's default
-    (pallas_sph.py:772-776); its sharded path passes the device's slab."""
-    return params.bounds_min[0], params.bounds_max[0] + params.cell
+def _slab(params: SimParams, geom: PlaneGeom = None, x_origin=None):
+    """[binning x origin, slab end) of the mover flag's slab test.  On one
+    card: the global domain padded by one cell, which no particle leaves
+    (collide clamps x inside the walls), the reference's default
+    (pallas_sph.py:772-776).  A sharded slab (``x_origin``, a float32 value
+    as a Python float): [x_origin, x_origin + nx * cell), summed in
+    float32 as the reference's step_planes does (inc.py:1180-1183)."""
+    if x_origin is None:
+        return params.bounds_min[0], params.bounds_max[0] + params.cell
+    x0 = np.float32(x_origin)
+    return float(x0), float(x0 + np.float32(geom.nx * params.cell))
 
 
 def accel_step_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
-                     params: SimParams, geom: PlaneGeom):
+                     params: SimParams, geom: PlaneGeom, x_origin=None,
+                     wall_params: SimParams = None):
     """(6, K, ...) pos/vel planes + (K, ...) density -> (new6, flagp).
 
     new6: the post-step pos/vel planes of every valid rank of an interior
@@ -347,13 +354,19 @@ def accel_step_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     slots whose particle now bins into another cell (the reference's float32
     ``floor((x - lo) * (1/cell))``, pallas_sph.py:552-578) or left the x
     slab.  Every other slot holds the sentinel (positions) or 0 (velocities,
-    flag)."""
+    flag).
+
+    A sharded slab: ``x_origin`` is its binning origin (the flag's x cell
+    and slab test, ``_slab``) and ``wall_params`` the global domain's walls
+    and obstacles, which collide uses in place of ``params``'."""
     acc, q, _ = _accel_window(field_planes, rho_planes, params, geom)
-    return _step_epilogue(acc, q, field_planes, params, geom)
+    return _step_epilogue(acc, q, field_planes, params, geom, x_origin,
+                          wall_params)
 
 
 def _step_epilogue(acc, q, field_planes: torch.Tensor, params: SimParams,
-                   geom: PlaneGeom):
+                   geom: PlaneGeom, x_origin=None,
+                   wall_params: SimParams = None):
     """Integrate, collide and flag the movers of the window's queries ->
     (new6, flagp) planes (see ``accel_step_plain``)."""
     dim = params.dim
@@ -361,12 +374,13 @@ def _step_epilogue(acc, q, field_planes: torch.Tensor, params: SimParams,
     dt = params.dt
     vs = [q[3 + c] + (acc[c] + grav[c]) * dt for c in range(dim)]
     ps = [q[c] + vs[c] * dt for c in range(dim)]
-    ps, vs = physics.collide_axes(ps, vs, params)
+    ps, vs = physics.collide_axes(ps, vs, wall_params or params)
     mask = _query_mask(field_planes[0], geom)
     cid = pm.cell_linear_parts(
-        torch.stack([p.reshape(-1) for p in ps], dim=-1), params, geom)
+        torch.stack([p.reshape(-1) for p in ps], dim=-1), params, geom,
+        x_origin)
     own = _window(pm.own_cid(geom, mask.device), geom)
-    x0, x1 = _slab(params)
+    x0, x1 = _slab(params, geom, x_origin)
     moved = (cid.reshape(ps[0].shape) != own) | (ps[0] < x0) \
         | (ps[0] >= x1)
     moved = moved & mask
@@ -383,19 +397,23 @@ def _step_epilogue(acc, q, field_planes: torch.Tensor, params: SimParams,
     return new6, flagp
 
 
-def _step_args(params: SimParams):
+def _step_args(params: SimParams, geom: PlaneGeom = None, x_origin=None,
+               wall_params: SimParams = None):
     """The fused epilogue's constants as the host float array that
     csrc/force.cu reads (FkStep): dt, -restitution, 1 + restitution,
     gravity[3], lo[3], hi[3], 1/cell[3], slab[2], then 7 floats per
     obstacle (kind 0 box / 1 sphere, centre[3], half extents[3] or the
-    radius)."""
+    radius).  The walls (restitution, lo, hi, obstacles) come from
+    ``wall_params`` when given, the slab from ``_slab``: the kernel bins x
+    by slab[0] and collides against lo and hi."""
+    walls = wall_params or params
     pad = (0.0,) * (3 - params.dim)
-    vals = [params.dt, -params.restitution, 1.0 + params.restitution]
-    vals += list(params.gravity + pad) + list(params.bounds_min + pad)
-    vals += list(params.bounds_max + pad)
+    vals = [params.dt, -walls.restitution, 1.0 + walls.restitution]
+    vals += list(params.gravity + pad) + list(walls.bounds_min + pad)
+    vals += list(walls.bounds_max + pad)
     vals += [1.0 / c for c in params.cells_axis] + [1.0] * (3 - params.dim)
-    vals += list(_slab(params))
-    for ob in params.obstacles:
+    vals += list(_slab(params, geom, x_origin))
+    for ob in walls.obstacles:
         kind, centre, extent = ob
         if kind == "box":
             vals += [0.0, *centre, *pad, *extent, *pad]
@@ -408,16 +426,19 @@ def _step_args(params: SimParams):
 
 def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                occ_q: torch.Tensor, occ_s: torch.Tensor,
-               params: SimParams, geom: PlaneGeom):
+               params: SimParams, geom: PlaneGeom, x_origin=None,
+               wall_params: SimParams = None):
     """The fused force step of the incremental path (see
-    ``accel_step_plain``): the CUDA kernel ``force_step`` on the card, the
-    plain version for CPU tensors.  ``rho_planes`` must carry refreshed
-    halo lanes."""
+    ``accel_step_plain``, also for a sharded slab's ``x_origin`` and
+    ``wall_params``): the CUDA kernel ``force_step`` on the card, the plain
+    version for CPU tensors.  ``rho_planes`` must carry refreshed halo
+    lanes."""
     if field_planes.device.type == "cpu":
-        return accel_step_plain(field_planes, rho_planes, params, geom)
+        return accel_step_plain(field_planes, rho_planes, params, geom,
+                                x_origin, wall_params)
     shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
-                               params, geom)
-    step = _step_args(params)
+                               params, geom, wall_params)
+    step = _step_args(params, geom, x_origin, wall_params)
     new6 = torch.empty((6,) + shape, dtype=torch.float32,
                        device=field_planes.device)
     flagp = torch.empty(shape, dtype=torch.float32,
@@ -427,22 +448,23 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                   *_occ_args(occ_q, occ_s), _build.ptr(new6),
                   _build.ptr(flagp), *_geom_args(geom), *_eos_args(params),
                   ctypes.cast(step, ctypes.c_void_p),
-                  ctypes.c_int(len(params.obstacles)))
+                  ctypes.c_int(len((wall_params or params).obstacles)))
     return new6, flagp
 
 
 def _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
-                       params: SimParams, geom: PlaneGeom):
+                       params: SimParams, geom: PlaneGeom,
+                       wall_params: SimParams = None):
     """Raise on what the fused CUDA step does not take; -> a plane's shape."""
     shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
     _build.check_tensor(field_planes, "field_planes", torch.float32,
                         (6,) + shape)
     _build.check_tensor(rho_planes, "rho_planes", torch.float32, shape)
     _check_bounds(occ_q, occ_s, geom, field_planes.device)
-    if len(params.obstacles) > MAX_KERNEL_OBSTACLES:
+    n_obs = len((wall_params or params).obstacles)
+    if n_obs > MAX_KERNEL_OBSTACLES:
         raise ValueError(f"the CUDA force step takes at most "
-                         f"{MAX_KERNEL_OBSTACLES} obstacles, got "
-                         f"{len(params.obstacles)}")
+                         f"{MAX_KERNEL_OBSTACLES} obstacles, got {n_obs}")
     return shape
 
 
@@ -451,7 +473,8 @@ def _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
 # --------------------------------------------------------------------------
 
 def accel_step_cont_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
-                          params: SimParams, geom: PlaneGeom):
+                          params: SimParams, geom: PlaneGeom, x_origin=None,
+                          wall_params: SimParams = None):
     """(6, K, ...) pos/vel planes + (K, ...) CARRIED density -> (new6,
     rho_new, flagp): ``accel_step_plain`` with the continuity terms in the
     pair loop (the reference's ``accel_planes(..., continuity=True)``).
@@ -465,10 +488,13 @@ def accel_step_cont_plain(field_planes: torch.Tensor, rho_planes: torch.Tensor,
       relax: (1 - lambda) (rho_q + drho_scale sr);
       rate:  rho_q + drho_scale sr  (with the delta-SPH term in sr when
              ``cont_delta > 0``);
-    and 0 on every slot that is not a valid rank of an interior cell."""
+    and 0 on every slot that is not a valid rank of an interior cell.
+    ``x_origin`` and ``wall_params``: a sharded slab's, as in
+    ``accel_step_plain``."""
     cont = _cont_constants(params)
     acc, q, sr = _accel_window(field_planes, rho_planes, params, geom, cont)
-    new6, flagp = _step_epilogue(acc, q, field_planes, params, geom)
+    new6, flagp = _step_epilogue(acc, q, field_planes, params, geom,
+                                 x_origin, wall_params)
     if cont.form == "sum":
         rho_new = cont.rho_sum_scale * sr
     else:
@@ -496,16 +522,18 @@ def _cont_args(params: SimParams):
 
 def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                     occ_q: torch.Tensor, occ_s: torch.Tensor,
-                    params: SimParams, geom: PlaneGeom):
+                    params: SimParams, geom: PlaneGeom, x_origin=None,
+                    wall_params: SimParams = None):
     """The fused force step of the continuity tier (see
     ``accel_step_cont_plain``): the CUDA kernel ``force_step_cont`` on the
     card, the plain version for CPU tensors.  ``rho_planes`` is the carried
     density with refreshed halo lanes."""
     if field_planes.device.type == "cpu":
-        return accel_step_cont_plain(field_planes, rho_planes, params, geom)
+        return accel_step_cont_plain(field_planes, rho_planes, params, geom,
+                                     x_origin, wall_params)
     shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
-                               params, geom)
-    step = _step_args(params)
+                               params, geom, wall_params)
+    step = _step_args(params, geom, x_origin, wall_params)
     dev = field_planes.device
     new6 = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
     rho_new = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -515,7 +543,8 @@ def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                   *_occ_args(occ_q, occ_s), _build.ptr(new6),
                   _build.ptr(rho_new), _build.ptr(flagp), *_geom_args(geom),
                   *_eos_args(params), ctypes.cast(step, ctypes.c_void_p),
-                  ctypes.c_int(len(params.obstacles)), *_cont_args(params))
+                  ctypes.c_int(len((wall_params or params).obstacles)),
+                  *_cont_args(params))
     return new6, rho_new, flagp
 
 
@@ -523,25 +552,55 @@ def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
 # full step
 # --------------------------------------------------------------------------
 
+def one_slab(steps):
+    """Run a step generator (``pallas_phases``, ``inc.step_phases``) that
+    was given no exchange, and so yields nothing, to its end; returns the
+    step's value."""
+    try:
+        next(steps)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError("a step without an exchange reached one")
+
+
 def step_pallas(pos, vel, ids, params: SimParams):
-    """One full-rebuild SPH step on the rank planes.
+    """One full-rebuild SPH step on the rank planes, on one card
+    (``pallas_phases`` without an exchange).
 
     bin (sorts + ``place``) -> occupancy bounds (``occ_rowmax``) -> density
     sweep -> halo refresh -> force sweep -> per-particle ``gather`` ->
     integrate.  Returns (pos, vel, rho, pres, ids, overflow) in slot-sorted
-    order; ``ids`` carries identity.
-    """
+    order; ``ids`` carries identity."""
+    return one_slab(pallas_phases(pos, vel, ids, params))
+
+
+def pallas_phases(pos, vel, ids, params: SimParams, x_origin=None,
+                  active=None, exchange=None, wall_params: SimParams = None):
+    """``step_pallas`` as a generator, the sharded step of one slab
+    (``parallel/sharded.py``), as the reference's (pallas_sph.py:818-890):
+    ``x_origin`` is the slab's binning origin, ``active`` masks its live
+    capacity slots, ``wall_params`` holds the global walls, and with
+    ``exchange`` (``parallel.sharded.SlabExchange``) it yields
+    ``(exchange, stack)`` after binning and for rho after ``halo_x``, and
+    takes back the stack with its outermost halo lanes filled from the
+    neighbouring slabs (``parallel.mesh.lockstep``)."""
     geom = pm.geometry(params)
-    table = pm.build_planes(pos, vel, ids, params, geom)
+    table = pm.build_planes(pos, vel, ids, params, geom, x_origin=x_origin,
+                            active=active)
     planes = table.planes
+    if exchange is not None:
+        planes = yield exchange.fields(pm.N_POS_FIELDS), planes
     occ_q, occ_s = pm.occupancy_bounds(planes, params, geom)
     rho_p = density_planes(planes[:pm.N_POS_FIELDS], occ_q, occ_s, params,
                            geom)
     # the force sweep reads halo lanes as candidates: refresh them from the
     # owning tiles (in place; particles never bin into halo lanes, so the
     # gather below reads the same values either way)
-    rho_p = pm.halo_x(rho_p)
-    acc_p = accel_planes(planes, rho_p, occ_q, occ_s, params, geom)
+    rho_h = pm.halo_x(rho_p)
+    if exchange is not None:
+        # the cross-slab halo lanes of rho (0 at the mesh's edges)
+        rho_h = (yield exchange.fields(0), rho_h[None])[0]
+    acc_p = accel_planes(planes, rho_h, occ_q, occ_s, params, geom)
 
     # one gather for acc (+ the density diagnostic); the reference gathers
     # rho_d = max(rho, 1e-3 rho0) and its EOS pressure as two more channels,
@@ -561,5 +620,15 @@ def step_pallas(pos, vel, ids, params: SimParams):
     else:
         rho = torch.full_like(out[:, 0], params.rest_density)
         pres = torch.zeros_like(out[:, 0])
-    pos, vel = physics.integrate(table.pos_s, table.vel_s, acc, params)
+    if active is not None:
+        active_s = table.ids_s >= 0
+        acc = torch.where(active_s[:, None], acc, 0.0)
+    # the walls may differ from the binning grid: a slab's grid covers the
+    # slab, its walls are the global domain's
+    pos, vel = physics.integrate(table.pos_s, table.vel_s, acc,
+                                 wall_params or params)
+    if active is not None:
+        # free slots stay parked at the sentinel
+        pos = torch.where(active_s[:, None], pos, pm.SENTINEL)
+        vel = torch.where(active_s[:, None], vel, 0.0)
     return pos, vel, rho, pres, table.ids_s, table.overflow

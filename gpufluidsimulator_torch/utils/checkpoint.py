@@ -2,15 +2,12 @@
 
 Counterpart: ``gpufluidsimulator_tpu/utils/checkpoint.py``: the same keys,
 dtypes and params JSON, so each package loads the other's files.  ``save``
-/ ``load`` hold a flat ``State``; ``save_planes`` / ``load_planes`` the
-incremental path's ``IncState`` directly (no planes -> flat conversion),
-with the continuity tier's carried ``rhop`` and ``age``; ``rotate`` writes
+/ ``load`` hold a flat ``State``; ``save_sharded`` / ``load_sharded`` a
+``parallel.sharded.ShardedState`` as stacked per-slab arrays (no gather);
+``save_planes`` / ``load_planes`` the incremental path's ``IncState``
+directly (no planes -> flat conversion), with its ``mig_overflow`` and the
+continuity tier's carried ``rhop`` and ``age``; ``rotate`` writes
 step-stamped files and keeps the newest few.
-
-The port's ``IncState`` has no ``mig_overflow`` (the count of movers a
-sharded run could not migrate): files get 0, which the reference reads,
-and a file with another value, which only a sharded run writes, is
-refused.  ``save_sharded`` / ``load_sharded`` come with the sharding port.
 """
 
 from __future__ import annotations
@@ -70,6 +67,47 @@ def load(path: str, device: DeviceLike = None
         return state, params, int(z["step"])
 
 
+def save_sharded(path: str, sstate, params: SimParams, step: int = 0,
+                 n_total: int = 0) -> None:
+    """Snapshot a ``parallel.sharded.ShardedState`` without a gather: the
+    slabs' arrays stacked (n_slabs, N_cap, ...), as the reference writes
+    them.  Every slab must be in this process.  Resume with
+    ``load_sharded(path, mesh)`` on a mesh of as many slabs."""
+    if any(p is None for p in sstate.pos):
+        raise ValueError("save_sharded writes every slab; slabs of other "
+                         "processes are not here")
+
+    def stacked(field):
+        return np.stack([_np(t) for t in getattr(sstate, field)])
+
+    np.savez_compressed(
+        path,
+        kind=np.asarray(1, np.int64),
+        **{f: stacked(f) for f in ("pos", "vel", "rho", "pres", "ids",
+                                   "overflow", "mig_overflow")},
+        n_total=np.asarray(n_total, np.int64),
+        step=np.asarray(step, np.int64),
+        params_json=_params_meta(params))
+
+
+def load_sharded(path: str, mesh):
+    """Load (ShardedState, params, step, n_total) onto a mesh's slabs (this
+    process's, each on its device).  Raises ``ValueError`` unless the mesh
+    has as many slabs as the file (slabs are per-slab state)."""
+    from ..parallel.mesh import shard_leading
+    from ..parallel.sharded import ShardedState
+
+    with np.load(path) as z:
+        params = _params_from_meta(z["params_json"])
+        n_dev = z["pos"].shape[0]
+        if mesh.size != n_dev:
+            raise ValueError(f"checkpoint has {n_dev} slabs but the mesh "
+                             f"has {mesh.size}")
+        sstate = ShardedState(**{f: shard_leading(mesh, z[f])
+                                 for f in ShardedState._fields})
+        return sstate, params, int(z["step"]), int(z["n_total"])
+
+
 def save_planes(path: str, inc_state, params: SimParams,
                 step: int = 0, n: int = 0) -> None:
     """Snapshot an ``ops.inc.IncState`` (the planes-resident carried state)
@@ -86,7 +124,7 @@ def save_planes(path: str, inc_state, params: SimParams,
         fields6=_np(inc_state.fields6),
         idp=_np(inc_state.idp),
         overflow=_np(inc_state.overflow),
-        mig_overflow=np.asarray(0, np.int32),
+        mig_overflow=_np(inc_state.mig_overflow),
         n=np.asarray(n, np.int64),
         step=np.asarray(step, np.int64),
         params_json=_params_meta(params), **extra)
@@ -94,22 +132,19 @@ def save_planes(path: str, inc_state, params: SimParams,
 
 def load_planes(path: str, device: DeviceLike = None):
     """Load (IncState, params, step, n) from a planes checkpoint onto
-    ``device`` (default: the card).  Raises ``ValueError`` for a file whose
-    ``mig_overflow`` is not 0: the one-card ``IncState`` cannot carry it."""
+    ``device`` (default: the card)."""
     from ..ops.inc import IncState
 
     dev = resolve_device(device)
     with np.load(path) as z:
         params = _params_from_meta(z["params_json"])
         # absent in the reference's oldest checkpoints: 0
-        mig = int(z["mig_overflow"]) if "mig_overflow" in z else 0
-        if mig != 0:
-            raise ValueError(
-                f"{path}: mig_overflow is {mig}, a sharded run's migration "
-                f"drops, which the one-card IncState cannot carry")
+        mig = (z["mig_overflow"] if "mig_overflow" in z
+               else np.asarray(0, np.int32))
         state = IncState(fields6=_tensor(z["fields6"], dev),
                          idp=_tensor(z["idp"], dev),
                          overflow=_tensor(z["overflow"], dev),
+                         mig_overflow=_tensor(mig, dev),
                          rhop=(_tensor(z["rhop"], dev) if "rhop" in z
                                else None),
                          age=int(z["age"]) if "age" in z else None)

@@ -9,8 +9,10 @@ subcommands, flags and output lines:
 
 Every subcommand takes ``--device`` (default ``cuda``): only an explicit
 ``--device cpu`` runs on the host.  The kernels build on their own at
-first use, so there is no compile cache to enable.  ``--sharded`` waits
-for the sharding port and refuses to run.
+first use, so there is no compile cache to enable.  ``run --sharded``
+steps a ``parallel.sharded.ShardedSim`` over one x slab per visible card
+(``--device cpu``: one slab on the host); ``bench`` ignores ``--sharded``
+and times one device, as the reference's does.
 """
 
 from __future__ import annotations
@@ -24,9 +26,6 @@ import sys
 import time
 
 import numpy as np
-
-SHARDED_ITEM = ("--sharded is not ported yet: ROADMAP.md queue 1, "
-                "sharding (parallel/mesh.py, parallel/sharded.py)")
 
 
 def _parse_box(spec: str, dim: int):
@@ -79,8 +78,8 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
                         "+ continuity-equation density (no per-step density "
                         "sweep); 'native' = multithreaded C++ CPU engine")
     p.add_argument("--sharded", action="store_true",
-                   help="spatial sharding over all visible devices (not "
-                        "ported yet: refused)")
+                   help="spatial sharding: one x slab per visible card "
+                        "(run only; bench ignores it)")
     _add_device_arg(p)
 
 
@@ -141,8 +140,6 @@ def _run_body(args) -> int:
             "--sharded and --movie are mutually exclusive: in-scan frame "
             "recording is not implemented on the sharded path (use "
             "--frames-dir for per-interval PNGs, or drop --sharded)")
-    if args.sharded:
-        raise SystemExit(SHARDED_ITEM)
     if args.resume:
         state, params, start = checkpoint.load(args.resume,
                                                device=args.device)
@@ -165,7 +162,10 @@ def _run_body(args) -> int:
         print(json.dumps({k: v for k, v in final_inv.items()
                           if k != "momentum"}))
         return 1 if final_inv["nan"] else 0
-    sim = FluidSim(params, state, method=args.method, device=args.device)
+    if args.sharded:
+        sim = _ShardedAdapter(params, state, args.method, args.device)
+    else:
+        sim = FluidSim(params, state, method=args.method, device=args.device)
     mets = metrics.RunMetrics(params, state.n, sim.method)
     print(f"scene={args.scene} N={state.n} dim={params.dim} "
           f"h={params.h:.4g} dt={params.dt:.3g} method={sim.method}")
@@ -201,6 +201,27 @@ def _run_body(args) -> int:
     return 1 if final["nan"] else 0
 
 
+class _ShardedAdapter:
+    """A ShardedSim behind FluidSim's step / state / method, over one slab
+    per visible card, or one slab on a named device (``--device cpu``)."""
+
+    def __init__(self, params, state, method: str, device: str):
+        from ..parallel import mesh as meshmod
+        from ..parallel.sharded import SHARDED_METHODS, ShardedSim
+        mesh = (meshmod.make_mesh() if device == "cuda"
+                else meshmod.make_mesh(devices=[device]))
+        method = method if method in SHARDED_METHODS else "pallas"
+        self._sim = ShardedSim(params, state,
+                               mesh=mesh, method=method)
+        self.method = f"sharded-{method} x{mesh.size}"
+        self.state = state
+
+    def step(self, n: int):
+        self._sim.step(n)
+        self.state = self._sim.gather()
+        return self.state
+
+
 def cmd_bench(args) -> int:
     return _traced(args, _bench_body, sys.stderr)
 
@@ -209,8 +230,8 @@ def _bench_body(args) -> int:
     from ..models import solver
     from . import profiling
 
-    if args.sharded:
-        raise SystemExit(SHARDED_ITEM)
+    # --sharded is ignored: the bench times one device, as the
+    # reference's does
     params, state = _build_scene(args)
     if args.method == "native":
         # the host engine: the wall clock over k2 - k1 steps after a

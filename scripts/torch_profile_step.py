@@ -7,6 +7,8 @@
         --scene double_dam_break --n 1000000 --warm 100
     python3 scripts/torch_profile_step.py --method gridded --dim 2 \
         --n 65536 --warm 1
+    python3 scripts/torch_profile_step.py --method pallas_inc \
+        --scene double_dam_break --n 4000000 --warm 1 --slabs 8
 
 ``--method pallas`` (default) runs the phases of the full-rebuild
 ``ops.sph.step_pallas`` one by one with CUDA events between them (binning
@@ -19,7 +21,10 @@ pallas_inc_cont`` those of its continuity tier (the density phase then
 runs only at a re-sum age: the carried rho is seeded by one sweep and the
 age starts at 1, as bench.py times it); ``--method gridded`` those of
 ``ops.gridded.step_gridded`` (cell table, density, EOS, force, gather +
-integrate) after ``--warm`` gridded steps.  All are averaged over
+integrate) after ``--warm`` gridded steps.  With ``--slabs`` N > 1 an
+incremental method runs sharded over N x slabs of the card in lock step
+(``parallel.sharded``, as ``run_sharded_inc`` steps them) and only the
+whole steps are timed and profiled.  All are averaged over
 ``--steps`` steps and followed by a ``torch.profiler`` trace of whole
 steps, summed by kernel name, with the device busy share of that window.
 Prints JSON lines; needs a CUDA card.  Imports nothing of JAX.
@@ -49,6 +54,7 @@ def main() -> int:
                     choices=["pallas", "pallas_inc", "pallas_inc_cont",
                              "gridded"])
     ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--slabs", type=int, default=1)
     args = ap.parse_args()
 
     import torch
@@ -70,6 +76,29 @@ def main() -> int:
                       method="gridded" if gridded else "pallas")
     sim.step(args.warm)
     torch.cuda.synchronize()
+    if args.slabs > 1:
+        if not inc_path:
+            print("--slabs takes pallas_inc or pallas_inc_cont",
+                  file=sys.stderr)
+            return 1
+        step = _sharded_steps(torch, params, sim.state, args.slabs,
+                              args.method == "pallas_inc_cont")
+        step(2)                                       # first touch
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        step(args.steps)
+        t1.record()
+        torch.cuda.synchronize()
+        print(json.dumps({"phase": "sharded_steps", "card": card,
+                          "method": args.method, "scene": args.scene,
+                          "particles": state.n, "slabs": args.slabs,
+                          "steps": args.steps,
+                          "ms_per_step": t0.elapsed_time(t1) / args.steps}),
+              flush=True)
+        _profile(torch, step, args.steps, card)
+        return 0
     if gridded:
         phases = _gridded_phases(torch, params, sim.state, args.steps)
         step = sim.step
@@ -106,7 +135,7 @@ def _inc_phases(torch, params, geom, state, steps, continuity):
     totals = dict.fromkeys(names, 0.0)
     m_cap = inc.mover_capacity(state.n)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom,
-                      continuity)
+                      continuity=continuity)
     if continuity:
         # bench.py:76-84: rho seeded by one density sweep, age from 1
         p6 = pm.halo_x(s.fields6)
@@ -143,6 +172,7 @@ def _inc_phases(torch, params, geom, state, steps, continuity):
                                          rho_new)
         s = inc.IncState(fields6=cons[0], idp=cons[1],
                          overflow=s.overflow + (total - m) + dropped,
+                         mig_overflow=s.mig_overflow,
                          rhop=cons[2] if continuity else None,
                          age=s.age + 1 if continuity else None)
         ev[6].record()
@@ -160,6 +190,36 @@ def _inc_phases(torch, params, geom, state, steps, continuity):
         for _ in range(n):
             box["s"] = inc.step_planes(box["s"], params, geom, m_cap)
     return phases, run
+
+
+def _sharded_steps(torch, params, state, slabs, continuity):
+    """A run(n) of n lock-step steps of ``slabs`` x slabs on the card."""
+    from gpufluidsimulator_torch.ops import inc
+    from gpufluidsimulator_torch.ops import planes as pm
+    from gpufluidsimulator_torch.parallel import mesh as meshmod
+    from gpufluidsimulator_torch.parallel import sharded
+
+    mesh = meshmod.make_mesh(devices=[torch.device("cuda", 0)] * slabs)
+    sstate, _ = sharded.distribute(params, state, mesh)
+    params_loc, nxl = sharded.local_params(params, slabs)
+    geom = pm.geometry(params_loc)
+    n_cap = sstate.pos[0].shape[0]
+    ex = sharded.make_exchange(mesh, nxl)
+    x0 = {d: sharded.slab_origin(params, nxl, d) for d in range(slabs)}
+    box = {"s": {d: inc.to_planes(sstate.pos[d], sstate.vel[d],
+                                  sstate.ids[d], params_loc, geom,
+                                  x_origin=x0[d], active=sstate.ids[d] >= 0,
+                                  continuity=continuity)
+                 for d in range(slabs)}}
+
+    def run(n):
+        for _ in range(n):
+            box["s"] = meshmod.lockstep({d: inc.step_phases(
+                s, params_loc, geom, inc.mover_capacity(n_cap),
+                x_origin=x0[d], exchange=ex, wall_params=params,
+                mig_cap=max(128, n_cap // 64))
+                for d, s in box["s"].items()})
+    return run
 
 
 def _gridded_phases(torch, params, st, steps):

@@ -25,6 +25,7 @@ from gpufluidsimulator_tpu.oracle import native as jnative
 import gpufluidsimulator_torch as tfs
 from gpufluidsimulator_torch.models import solver as tsolver
 from gpufluidsimulator_torch.utils import checkpoint as tckpt
+from gpufluidsimulator_torch.utils import metrics as tmetrics
 from gpufluidsimulator_torch.utils.cli import main
 
 REPO = Path(__file__).resolve().parent.parent
@@ -174,12 +175,36 @@ def test_sharded_movie_refused(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["run", "bench"])
-def test_sharded_refused(cmd):
-    """--sharded names the ROADMAP item that ports it; it never runs on
-    one device in its place."""
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, sharding"):
-        main([cmd, "-n", "200", "--dim", "2", "--method", "naive",
-              "--sharded", *CPU])
+def test_sharded_refused(cmd, capsys):
+    """--sharded is no longer refused.  ``run --sharded`` steps a
+    ShardedSim (one slab on the host with --device cpu) and ends where
+    the same ShardedSim does; ``bench --sharded`` ignores the flag and
+    times one device, as the reference's does."""
+    from gpufluidsimulator_torch.parallel import mesh as tmesh
+    from gpufluidsimulator_torch.parallel import sharded as tsh
+    if cmd == "bench":
+        rc = main(["bench", "-n", "200", "--dim", "2", "--method",
+                   "pallas_inc", "--k1", "1", "--k2", "3", "--sharded",
+                   *CPU])
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0 and set(line) == BENCH_KEYS
+        assert line["method"] == "pallas_inc"
+        return
+    rc = main(["run", "-n", "300", "--dim", "2", "--steps", "6",
+               "--report-every", "3", "--method", "pallas_inc",
+               "--sharded", *CPU])
+    out = capsys.readouterr().out
+    assert rc == 0 and "method=sharded-pallas_inc x1" in out
+    final = json.loads(out.strip().splitlines()[-1])
+    params, state = tfs.scenes.dam_break(n=300, dim=2, device="cpu")
+    sim = tsh.ShardedSim(params, state, method="pallas_inc",
+                         mesh=tmesh.make_mesh(devices=["cpu"]))
+    sim.step(3)
+    sim.step(3)
+    want = tmetrics.invariants(sim.gather(), params)
+    for key in ("kinetic_energy", "potential_energy", "vmax", "overflow",
+                "nan"):
+        assert final[key] == want[key], key
 
 
 def test_default_device_is_the_card(monkeypatch):

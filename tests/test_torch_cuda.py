@@ -19,7 +19,9 @@ compaction's edges (no flag, every flag, the first and last slot, 1 and
 8 channels, a partial last chunk, calls in a row), and the packed-pair
 sweep with a sentinel tail, a query tile whose three candidate ranges
 are empty, particles on cell corners, query groups across row and plane
-wraps, and tiles whose ranges it stages in several windows.
+wraps, and tiles whose ranges it stages in several windows; and the
+sharded methods on two slabs of the card against two CPU slabs, with a
+lock-step 3-slab step under sync debug mode "error".
 Tolerances as in ``chip_smoke.py``: occupancy, placement, gather,
 compaction and consolidation exact; density and the packed sweep relative
 1e-5 and force 1e-4 (summation order and ``rsqrtf``); the fused force
@@ -845,3 +847,66 @@ def test_sweep_packed_empty_tile_and_refusals(cuda):
         mxu_sweep.sweep_packed(f, cids.long(), desc, params)
     with pytest.raises(ValueError, match="particles"):
         mxu_sweep.sweep_packed(f, cids[:-mxu_sweep.TQ], desc, params)
+
+
+SHARD_CASES = ["2d", "3d_collide", "multi_tile"]
+
+
+@pytest.mark.parametrize("method", ["pallas", "pallas_inc",
+                                    "pallas_inc_cont"])
+@pytest.mark.parametrize("case", SHARD_CASES)
+def test_sharded_on_card_matches_cpu(cuda, case, method):
+    """Three steps sharded over 2 slabs of the card (one device twice)
+    against the same mesh on the CPU, in scenes whose velocities carry
+    particles across cell and slab faces: positions by id relative 1e-5
+    and velocities 1e-3 (the run_inc bars), the same counters, ids
+    conserved.  The slab force steps run with x_origin != bounds_min[0]
+    on slab 1."""
+    from gpufluidsimulator_torch.parallel import mesh, sharded
+    params, state = _inc_scene(case)
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        sim = sharded.ShardedSim(params, state, method=method,
+                                 mesh=mesh.make_mesh(devices=[dev] * 2))
+        sim.step(3)
+        g = sim.gather()
+        got.append((g.pos.cpu(), g.vel.cpu(),
+                    [int(o) for o in sim.sstate.overflow],
+                    [int(o) for o in sim.sstate.mig_overflow]))
+    (pg, vg, og, mg), (pc, vc, oc, mc) = got
+    assert _rel(pg, pc) <= 1e-5
+    assert _rel(vg, vc) <= 1e-3
+    assert (og, mg) == (oc, mc)
+
+
+def test_sharded_step_never_waits_for_the_card(cuda):
+    """One lock-step pallas_inc step of 3 slabs on the card, and of the
+    continuity tier at age 0 and 1, under sync debug mode "error"."""
+    from gpufluidsimulator_torch.parallel import mesh as meshmod
+    from gpufluidsimulator_torch.parallel import sharded
+    params, state = _inc_scene("2d")
+    m = meshmod.make_mesh(devices=[cuda] * 3)
+    sstate, _ = sharded.distribute(params, state, m)
+    params_loc, nxl = sharded.local_params(params, 3)
+    geom = pm.geometry(params_loc)
+    n_cap = sstate.pos[0].shape[0]
+    ex = sharded.make_exchange(m, nxl)
+    x0 = {d: sharded.slab_origin(params, nxl, d) for d in range(3)}
+    for cont in (False, True):
+        s = {d: inc.to_planes(sstate.pos[d], sstate.vel[d], sstate.ids[d],
+                              params_loc, geom, x_origin=x0[d],
+                              active=sstate.ids[d] >= 0, continuity=cont)
+             for d in range(3)}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2 if cont else 1):
+                s = meshmod.lockstep({d: inc.step_phases(
+                    s[d], params_loc, geom, inc.mover_capacity(n_cap),
+                    x_origin=x0[d], exchange=ex, wall_params=params,
+                    mig_cap=max(128, n_cap // 64))
+                    for d in range(3)})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert sum(int(v.mig_overflow) for v in s.values()) == 0

@@ -485,18 +485,28 @@ def test_facade_and_rollout():
 
 
 def test_guards(monkeypatch):
-    """IncState carries the one-card state of both tiers (the continuity
-    tier's rhop and age, None on the summation tier) and step_planes takes
-    no sharded arguments; float32 ids cap to_planes; run refuses the
-    facade-only method native with ValueError, as the reference does."""
-    assert tinc.IncState._fields == ("fields6", "idp", "overflow", "rhop",
-                                     "age")
-    assert list(inspect.signature(tinc.step_planes).parameters) == [
-        "state", "params", "geom", "m_cap"]
+    """IncState carries the reference's fields (mig_overflow, 0 on one
+    card; the continuity tier's rhop and age, None on the summation tier);
+    step_planes is the reference's one-card call and step_phases, the
+    sharded step, takes the reference's sharded arguments less n_dev and
+    axis, which its exchange carries (the mesh); float32 ids cap
+    to_planes; run refuses the facade-only method native with ValueError,
+    as the reference does."""
+    assert tinc.IncState._fields == jinc.IncState._fields == (
+        "fields6", "idp", "overflow", "mig_overflow", "rhop", "age")
+    ref = list(inspect.signature(jinc.step_planes).parameters)
+    assert ref == ["state", "params", "geom", "m_cap", "x_origin",
+                   "exchange", "wall_params", "n_dev", "mig_cap", "axis"]
+    assert list(inspect.signature(tinc.step_planes).parameters) == ref[:4]
+    assert list(inspect.signature(tinc.step_phases).parameters) == [
+        p for p in ref if p not in ("n_dev", "axis")]
     tp, ts = tfs.scenes.dam_break(n=300, dim=2, device="cpu")
     geom = tpm.geometry(tp)
     s = tinc.to_planes(ts.pos, ts.vel, ts.ids, tp, geom)
     assert s.rhop is None and s.age is None
+    assert s.mig_overflow.dtype == torch.int32 and int(s.mig_overflow) == 0
+    s1 = tinc.step_planes(s, tp, geom, tinc.mover_capacity(ts.n))
+    assert s1.mig_overflow is s.mig_overflow
     with pytest.raises(ValueError, match="native"):
         tfs.run(ts, tp, 2, method="native", device="cpu")
     monkeypatch.setattr(tinc, "MAX_F32_ID", ts.n - 1)
