@@ -78,11 +78,31 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               step (CUDA events around each exchange); sharded_tools runs
               `run --sharded` through the CLI and resumes a 4-slab
               run_sharded from save_sharded / load_sharded bitwise
-  8. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
+  8. acceptance  the reference's acceptance gates at its sizes, step
+              counts and bars: dt2_parity runs config 1's scene (the 2D
+              dam break of 4,096) at half its CFL dt for 1,000 steps on
+              naive, gridded, pallas and pallas_inc (within 1e-3 of the
+              port's float64 C++ oracle, particles by id) and
+              pallas_inc_cont (1e-2), overflow 0; statistical runs the
+              full-CFL statistical acceptance of pallas_inc and
+              pallas_inc_cont (scripts/torch_accept_cont.py: binned
+              density, centre of mass and kinetic energy at 250, 500, 750
+              and 1,000 steps within max(8 x the oracle's 1-ulp envelope,
+              floors), the centre of mass fallen by more than 0.02);
+              invariant_* runs scripts/torch_invariants.py's momentum,
+              energy, finiteness, bounds and obstacle checks on naive,
+              pallas_inc and pallas_inc_cont; soak steps config 4 5,000
+              times on each incremental tier in chunks of 250
+              (scripts/torch_soak.py): in every chunk overflow and
+              mig_overflow 0, all 1,197,770 particles live, every field
+              finite, with each chunk's ms/step and vmax, and launch
+              counts that show every step went through the tier's kernels
+  9. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
      numbers, the mode the steps launch, and holds the row-maxima-only
      call's under row_maxima_only; every entry has launches_sharded and
-     launches_sharded_cont, its launches per config-5 step on 8 slabs),
-     the card line, and the final ok line.
+     launches_sharded_cont, its launches per config-5 step on 8 slabs,
+     and launches_soak and launches_soak_cont, its launches in each
+     tier's soak), the card line, and the final ok line.
 Phase 2 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
 then sum) on the card against the port's CPU path, with the carried rho,
 one FluidSim(method="gridded") step (2D n=600, 3D n=1,200) and the packed
@@ -2049,6 +2069,131 @@ def phase_sharded_tools(torch, ft):
           "seconds": time.perf_counter() - t0})
 
 
+# the acceptance phase: the reference's gates (tests/test_naive_vs_oracle.py,
+# tests/test_invariants.py, scripts/soak.py) on the card, at the reference's
+# sizes and step counts and with its bars
+DT2_STEPS = 1000
+DT2_BARS = {"naive": 1e-3, "gridded": 1e-3, "pallas": 1e-3,
+            "pallas_inc": 1e-3,
+            # an O(dt)-different density evolution: the reference's bar
+            "pallas_inc_cont": 1e-2}
+# the reference's own errors there, on the TPU (BASELINE.md:729, :420-425)
+DT2_REFERENCE = {"pallas": 4.9e-5, "pallas_inc": 6.3e-5,
+                 "pallas_inc_cont": 4.8e-3}
+INVARIANT_METHODS = ("naive", "pallas_inc", "pallas_inc_cont")
+INVARIANT_CHECKS = ("momentum", "energy", "finite", "bounds", "obstacles")
+SOAK_STEPS = 5000
+SOAK_CHUNK = 250
+
+
+def acceptance_dt2(torch, ft):
+    """1000 steps of config 1's scene at dt/2 on each method, against the
+    port's float64 C++ oracle (cell lists), particles by id."""
+    from gpufluidsimulator_torch.oracle import native
+    params, state = ft.scenes.dam_break(n=4096, dim=2, device="cuda")
+    params = params.replace(dt=params.dt * 0.5)
+    t0 = time.perf_counter()
+    want, _, _, _ = native.run(state.pos.double().cpu().numpy(),
+                               state.vel.double().cpu().numpy(), params,
+                               DT2_STEPS, use_grid=True)
+    oracle_s = time.perf_counter() - t0
+    for method, bar in DT2_BARS.items():
+        t0 = time.perf_counter()
+        st = ft.run(state, params, DT2_STEPS, method=method)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = positions_by_id(st).double().cpu().numpy()
+        err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-9))
+        overflow = int(st.overflow)
+        emit({"phase": "acceptance", "check": "dt2_parity",
+              "method": method, "particles": state.n, "steps": DT2_STEPS,
+              "rel_err": err, "bar": bar,
+              "reference_tpu_rel_err": DT2_REFERENCE.get(method),
+              "overflow": overflow, "seconds": secs,
+              "oracle_seconds": oracle_s})
+        check(err < bar and overflow == 0,
+              f"dt/2 parity {method}: rel_err {err} (bar {bar}), overflow "
+              f"{overflow}")
+
+
+def acceptance_statistical():
+    """The full-CFL statistical acceptance of both incremental tiers
+    (scripts/torch_accept_cont.py)."""
+    from scripts import torch_accept_cont as acc
+    params, state = acc.scene()
+    result = acc.accept(params, state)
+    for r in result["runs"]:
+        for row in r["rows"]:
+            emit({"phase": "acceptance", "check": "statistical", **row})
+        emit({"phase": "acceptance", "check": "statistical_fall",
+              "method": r["method"], "com_fall": r["com_fall"],
+              "bar": acc.COM_FALL, "seconds": r["seconds"],
+              "oracle_seconds": result["oracle_s"]})
+    bad = acc.failures(result)
+    check(not bad, f"statistical acceptance: {bad}")
+
+
+def acceptance_invariants():
+    """tests/test_invariants.py's checks on the card
+    (scripts/torch_invariants.py)."""
+    from scripts import torch_invariants as inv
+    for method in INVARIANT_METHODS:
+        for name in INVARIANT_CHECKS:
+            t0 = time.perf_counter()
+            r = inv.CHECKS[name](method, "cuda")
+            emit({"phase": "acceptance", "check": f"invariant_{name}",
+                  "method": method, **r,
+                  "seconds": time.perf_counter() - t0})
+            check(r["ok"], f"invariant {name} on {method}: {r}")
+
+
+def acceptance_soak(ft_build):
+    """5,000 steps of config 4 on each incremental tier in chunks of 250
+    (scripts/torch_soak.py).  Returns each tier's launch counts."""
+    from gpufluidsimulator_torch.ops import inc
+    from scripts import torch_soak
+    counts = {}
+    for continuity in (False, True):
+        ft_build.reset_launches()
+        out = torch_soak.soak(steps=SOAK_STEPS, chunk=SOAK_CHUNK,
+                              continuity=continuity)
+        got = dict(ft_build.launches)
+        method = out["config"]["method"]
+        want = dict.fromkeys(got, 0)
+        want.update(occ_rowmax=SOAK_STEPS, compact=SOAK_STEPS, place=1)
+        if continuity:
+            want.update(density=len(range(0, SOAK_STEPS, inc.RESUM_EVERY)),
+                        force_step_cont=SOAK_STEPS,
+                        consolidate_rho=SOAK_STEPS)
+        else:
+            want.update(density=SOAK_STEPS, force_step=SOAK_STEPS,
+                        consolidate=SOAK_STEPS)
+        emit({"phase": "acceptance", "check": "soak", "method": method,
+              "particles": out["config"]["n"], "steps": SOAK_STEPS,
+              "chunk": SOAK_CHUNK, "card": out["card"],
+              **out["summary"], "launches": got,
+              "chunks": [[r["step"], r["ms_per_step"], r["vmax"]]
+                         for r in out["rows"]]})
+        bad = torch_soak.failures(out)
+        check(not bad, f"soak {method}: {bad}")
+        check(got == want, f"soak {method}: launches {got}, expected {want}")
+        counts[method] = got
+    return counts
+
+
+def phase_acceptance(torch, ft, ft_build):
+    """The acceptance gates: dt/2 trajectory parity, the full-CFL
+    statistical acceptance, the invariants and the soak."""
+    t0 = time.perf_counter()
+    acceptance_dt2(torch, ft)
+    acceptance_statistical()
+    acceptance_invariants()
+    counts = acceptance_soak(ft_build)
+    emit({"phase": "acceptance", "check": "done",
+          "seconds": time.perf_counter() - t0})
+    return counts
+
+
 SOURCES = {
     "occ_rowmax": ("gpufluidsimulator_torch/csrc/occ_rowmax.cu",
                    "gpufluidsimulator_tpu/ops/planes.py:326"),
@@ -2127,6 +2272,7 @@ def main() -> int:
     del state4
     sharded_counts = phase_sharded_run(torch, ft, ft_build)
     phase_sharded_tools(torch, ft)
+    soak_counts = phase_acceptance(torch, ft, ft_build)
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2162,6 +2308,9 @@ def main() -> int:
         entry["launches_sharded"] = sharded_counts["pallas_inc"][name]
         entry["launches_sharded_cont"] = \
             sharded_counts["pallas_inc_cont"][name]
+        # launches in the 5,000-step soak of each tier
+        entry["launches_soak"] = soak_counts["pallas_inc"][name]
+        entry["launches_soak_cont"] = soak_counts["pallas_inc_cont"][name]
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

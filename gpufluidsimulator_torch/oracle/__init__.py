@@ -1,0 +1,1 @@
+from . import numpy_ref  # noqa: F401

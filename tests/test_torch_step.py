@@ -224,12 +224,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
         tfs.make_state(np.zeros((4, 2), np.float32))
 
 
+# imported besides every module of the package: the port's float64 oracle
+# and its acceptance scripts
+PORT_ALSO = ("gpufluidsimulator_torch.oracle.numpy_ref",
+             "scripts.torch_accept_cont", "scripts.torch_sweep_cont_accept",
+             "scripts.torch_soak", "scripts.torch_invariants")
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, pkgutil, importlib\n"
         "import gpufluidsimulator_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for name in {PORT_ALSO!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'gpufluidsimulator_tpu'))\n"
         "print(bad)\n"
