@@ -22,12 +22,14 @@ import numpy as np
 import torch
 
 from ..ops import naive
+from ..utils import profiling
 from .params import SimParams
 from .state import DeviceLike, State, resolve_device
 
 
 def _step_naive(state: State, params: SimParams) -> State:
-    pos, vel, rho, pres = naive.step_naive(state.pos, state.vel, params)
+    with profiling.span("naive.step"):
+        pos, vel, rho, pres = naive.step_naive(state.pos, state.vel, params)
     return State(pos=pos, vel=vel, rho=rho, pres=pres, ids=state.ids,
                  overflow=torch.zeros((), dtype=torch.int32,
                                       device=pos.device))
@@ -35,8 +37,9 @@ def _step_naive(state: State, params: SimParams) -> State:
 
 def _step_gridded(state: State, params: SimParams) -> State:
     from ..ops import gridded
-    pos, vel, rho, pres, overflow = gridded.step_gridded(
-        state.pos, state.vel, params)
+    with profiling.span("gridded.step"):
+        pos, vel, rho, pres, overflow = gridded.step_gridded(
+            state.pos, state.vel, params)
     return State(pos=pos, vel=vel, rho=rho, pres=pres, ids=state.ids,
                  overflow=overflow)
 
@@ -107,17 +110,19 @@ def step(state: State, params: SimParams, method: str = "auto",
 def run(state: State, params: SimParams, n_steps: int, method: str = "auto",
         device: DeviceLike = None) -> State:
     """Advance ``n_steps``.  Kernel launches queue on the current stream;
-    nothing waits for the device between steps."""
-    state = state.to(resolve_device(device))
-    method = _run_method(method, n_steps, state.n)
-    if method in INC_METHODS:
-        from ..ops import inc
-        return inc.run_inc(state, params, n_steps,
-                           continuity=method == "pallas_inc_cont")
-    fn = METHODS[method]
-    for _ in range(n_steps):
-        state = fn(state, params)
-    return state
+    nothing waits for the device between steps.  One call of the profiling
+    record (span ``solver.run``)."""
+    with profiling.span("solver.run"):
+        state = state.to(resolve_device(device))
+        method = _run_method(method, n_steps, state.n)
+        if method in INC_METHODS:
+            from ..ops import inc
+            return inc.run_inc(state, params, n_steps,
+                               continuity=method == "pallas_inc_cont")
+        fn = METHODS[method]
+        for _ in range(n_steps):
+            state = fn(state, params)
+        return state
 
 
 def rollout(state: State, params: SimParams, n_steps: int,
@@ -128,22 +133,24 @@ def rollout(state: State, params: SimParams, n_steps: int,
     slot-sorted, so row i of different frames may be different particles;
     re-align by ``State.ids`` for per-particle trajectories.
     'pallas_inc' and 'pallas_inc_cont' record frames out of the resident
-    planes (``inc.rollout_inc``)."""
-    state = state.to(resolve_device(device))
-    method = _run_method(method, n_steps, state.n)
-    if method in INC_METHODS:
-        from ..ops import inc
-        return inc.rollout_inc(state, params, n_steps, record_every,
-                               continuity=method == "pallas_inc_cont")
-    fn = METHODS[method]
-    frames = []
-    for _ in range(n_steps // record_every):
-        for _ in range(record_every):
-            state = fn(state, params)
-        frames.append(state.pos)
-    traj = (torch.stack(frames) if frames else
-            state.pos.new_zeros((0,) + tuple(state.pos.shape)))
-    return state, traj
+    planes (``inc.rollout_inc``).  One call of the profiling record (span
+    ``solver.rollout``)."""
+    with profiling.span("solver.rollout"):
+        state = state.to(resolve_device(device))
+        method = _run_method(method, n_steps, state.n)
+        if method in INC_METHODS:
+            from ..ops import inc
+            return inc.rollout_inc(state, params, n_steps, record_every,
+                                   continuity=method == "pallas_inc_cont")
+        fn = METHODS[method]
+        frames = []
+        for _ in range(n_steps // record_every):
+            for _ in range(record_every):
+                state = fn(state, params)
+            frames.append(state.pos)
+        traj = (torch.stack(frames) if frames else
+                state.pos.new_zeros((0,) + tuple(state.pos.shape)))
+        return state, traj
 
 
 class FluidSim:

@@ -41,6 +41,7 @@ import torch
 
 from .. import _build
 from ..models.params import SimParams
+from ..utils import profiling
 from . import physics
 from . import planes as pm
 from . import sph
@@ -62,6 +63,8 @@ RESUM_EVERY = 64       # continuity tier, cont_form="rate": steps between
 # summation-density re-syncs of the carried plane (the reference's
 # inc.py:70); "sum" and "relax" re-anchor in the sweep and resum only at
 # age 0.  Read at call time, so it can be patched.
+STEP_COUNTERS = ("movers", "flagged", "drops_cell_capacity")   # a step's
+# tallies (utils/profiling)
 
 
 def mover_capacity(n: int) -> int:
@@ -354,6 +357,7 @@ def to_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
                          f"most {MAX_F32_ID} particles; got {pos.shape[0]}")
     table = pm.build_planes(pos, vel, ids, params, geom, with_ids=True,
                             x_origin=x_origin, active=active)
+    profiling.tally(("drops_cell_capacity",), table.overflow)
     idp = table.planes[6]
     return IncState(fields6=table.planes[:6], idp=idp,
                     overflow=table.overflow,
@@ -415,7 +419,8 @@ def step_planes(state: IncState, params: SimParams, geom: PlaneGeom,
 
     The halo lanes of ``state.fields6`` (and of the carried rho) are
     refilled in place (they hold no particles of their own)."""
-    return sph.one_slab(step_phases(state, params, geom, m_cap))
+    with profiling.span("inc.step"):
+        return sph.one_slab(step_phases(state, params, geom, m_cap))
 
 
 def step_phases(state: IncState, params: SimParams, geom: PlaneGeom,
@@ -432,32 +437,42 @@ def step_phases(state: IncState, params: SimParams, geom: PlaneGeom,
       2. the rho ghost lanes, after ``halo_x``, before the force step;
       3. the slab-leaving movers, after ``compact`` (``mig_cap`` rows each
          way; their loss counted in ``mig_overflow``).
-    Without ``exchange`` it yields nothing: one card's step."""
+    Without ``exchange`` it yields nothing: one card's step.  Its phases
+    are spans (``utils/profiling``), none open across a ``yield``; the
+    step's own span is its caller's."""
     continuity = state.rhop is not None
-    planes6 = pm.halo_x(state.fields6)
-    if exchange is not None:
-        planes6 = yield exchange.fields(3), planes6
-    occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
-    if not continuity or resums(state, params):
-        rho_p = sph.density_planes(planes6[:3], occ_q, occ_s, params, geom)
+    if exchange is None:
+        with profiling.span("inc.bounds"):
+            planes6 = pm.halo_x(state.fields6)
+            occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
     else:
-        rho_p = state.rhop
-    rho_h = pm.halo_x(rho_p)
+        planes6 = yield exchange.fields(3), pm.halo_x(state.fields6)
+        with profiling.span("inc.bounds"):
+            occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
+    with profiling.span("inc.density"):
+        if not continuity or resums(state, params):
+            rho_p = sph.density_planes(planes6[:3], occ_q, occ_s, params,
+                                       geom)
+        else:
+            rho_p = state.rhop
+        rho_h = pm.halo_x(rho_p)
     if exchange is not None:
         rho_h = (yield exchange.fields(0), rho_h[None])[0]
-    if continuity:
-        new6, rho_new, flagp = sph.accel_step_cont(
-            planes6, rho_h, occ_q, occ_s, params, geom, x_origin,
-            wall_params)
-        channels = [*new6, state.idp, rho_new]
-    else:
-        new6, flagp = sph.accel_step(planes6, rho_h, occ_q, occ_s, params,
-                                     geom, x_origin, wall_params)
-        rho_new = None
-        channels = [*new6, state.idp]
+    with profiling.span("inc.force"):
+        if continuity:
+            new6, rho_new, flagp = sph.accel_step_cont(
+                planes6, rho_h, occ_q, occ_s, params, geom, x_origin,
+                wall_params)
+            channels = [*new6, state.idp, rho_new]
+        else:
+            new6, flagp = sph.accel_step(planes6, rho_h, occ_q, occ_s,
+                                         params, geom, x_origin, wall_params)
+            rho_new = None
+            channels = [*new6, state.idp]
     # the flagged movers straight out of the unblanked post-step planes
     # (flagp is 0 on every slot that is not interior)
-    movers, m, staged_total = compact(channels, flagp, m_cap)
+    with profiling.span("inc.compact"):
+        movers, m, staged_total = compact(channels, flagp, m_cap)
     live = None
     mig_overflow = state.mig_overflow
     if exchange is not None:
@@ -465,9 +480,12 @@ def step_phases(state: IncState, params: SimParams, geom: PlaneGeom,
         movers, live, lost = yield (exchange.movers(width, mig_cap),
                                     (movers, m, x_origin))
         mig_overflow = mig_overflow + lost
-    arr = arrival_planes(movers, m, params, geom, x_origin, live)
-    *cons, dropped = consolidate(new6, state.idp, flagp, arr, geom, rho_new)
-    overflow = state.overflow + (staged_total - m) + dropped
+    with profiling.span("inc.consolidate"):
+        arr = arrival_planes(movers, m, params, geom, x_origin, live)
+        *cons, dropped = consolidate(new6, state.idp, flagp, arr, geom,
+                                     rho_new)
+        overflow = state.overflow + (staged_total - m) + dropped
+        profiling.tally(STEP_COUNTERS, m, staged_total, dropped)
     return IncState(fields6=cons[0], idp=cons[1], overflow=overflow,
                     mig_overflow=mig_overflow,
                     rhop=cons[2] if continuity else None,
@@ -581,11 +599,13 @@ def run_inc(state, params: SimParams, n_steps: int,
     n = state.n
     geom = pm.geometry(params)
     m_cap = mover_capacity(n)
-    s = _convert_in(state, params, geom, continuity)
+    with profiling.span("inc.to_planes"):
+        s = _convert_in(state, params, geom, continuity)
     for _ in range(n_steps):
         s = step_planes(s, params, geom, m_cap)
-    vals, cnt = to_flat(s, params, geom, n)
-    return _flat_state(vals, cnt, s.overflow, params, n)
+    with profiling.span("inc.to_flat"):
+        vals, cnt = to_flat(s, params, geom, n)
+        return _flat_state(vals, cnt, s.overflow, params, n)
 
 
 def rollout_inc(state, params: SimParams, n_steps: int,
@@ -599,21 +619,24 @@ def rollout_inc(state, params: SimParams, n_steps: int,
     n = state.n
     geom = pm.geometry(params)
     m_cap = mover_capacity(n)
-    s = _convert_in(state, params, geom, continuity)
+    with profiling.span("inc.to_planes"):
+        s = _convert_in(state, params, geom, continuity)
     lo = params.bounds_min
     frames = []
     for _ in range(n_steps // record_every):
         for _ in range(record_every):
             s = step_planes(s, params, geom, m_cap)
-        vals, cnt = to_flat_lite(s, geom, n)
-        live = torch.arange(vals.shape[1], device=vals.device) < cnt
-        frames.append(torch.stack(
-            [torch.where(live, vals[d], lo[d]) for d in range(params.dim)],
-            dim=-1)[:n])
+        with profiling.span("inc.to_flat"):
+            vals, cnt = to_flat_lite(s, geom, n)
+            live = torch.arange(vals.shape[1], device=vals.device) < cnt
+            frames.append(torch.stack(
+                [torch.where(live, vals[d], lo[d])
+                 for d in range(params.dim)], dim=-1)[:n])
     for _ in range(n_steps % record_every):
         s = step_planes(s, params, geom, m_cap)
-    vals, cnt = to_flat(s, params, geom, n)
-    final = _flat_state(vals, cnt, s.overflow, params, n)
+    with profiling.span("inc.to_flat"):
+        vals, cnt = to_flat(s, params, geom, n)
+        final = _flat_state(vals, cnt, s.overflow, params, n)
     traj = (torch.stack(frames) if frames else
             final.pos.new_zeros((0, n, params.dim)))
     return final, traj

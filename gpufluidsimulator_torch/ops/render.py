@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.params import SimParams
+from ..utils import profiling
 
 # fixed-point scale of the splat's sums: contributions are rounded to
 # 2^-32 (a pixel's sum is then within 2^-33 per particle of the exact
@@ -71,59 +72,63 @@ def splat(pos: torch.Tensor, params: SimParams, width: int = 512,
     """Rasterize particle positions to an intensity framebuffer (H, W) f32
     on ``pos``'s device.  ``weights`` (N,) modulates per-particle intensity
     (e.g. density or speed); default 1.  Corners outside the frame add
-    nothing."""
-    dev = pos.device
-    lo = torch.tensor(params.bounds_min, dtype=torch.float32, device=dev)
-    hi = torch.tensor(params.bounds_max, dtype=torch.float32, device=dev)
-    cam = torch.from_numpy(_camera_matrix(params.dim, azimuth,
-                                          elevation)).to(dev)
-    centered = (pos - lo) / (hi - lo) - 0.5            # [-0.5, 0.5]^d
-    proj = [_row_sum(centered * cam[k]) for k in range(params.dim)]
-    u = (proj[0] + 0.5) * (width - 1)
-    v = (0.5 - proj[1]) * (height - 1)                  # y up -> row down
-    if params.dim == 3:
-        depth = proj[2] + 0.5
-        shade = 0.55 + 0.45 * torch.clamp(depth, 0.0, 1.0)
-    else:
-        shade = torch.ones_like(u)
-    w = shade if weights is None else shade * weights
+    nothing.  Span ``render.splat``."""
+    with profiling.span("render.splat"):
+        dev = pos.device
+        lo = torch.tensor(params.bounds_min, dtype=torch.float32, device=dev)
+        hi = torch.tensor(params.bounds_max, dtype=torch.float32, device=dev)
+        cam = torch.from_numpy(_camera_matrix(params.dim, azimuth,
+                                              elevation)).to(dev)
+        centered = (pos - lo) / (hi - lo) - 0.5            # [-0.5, 0.5]^d
+        proj = [_row_sum(centered * cam[k]) for k in range(params.dim)]
+        u = (proj[0] + 0.5) * (width - 1)
+        v = (0.5 - proj[1]) * (height - 1)                  # y up -> row down
+        if params.dim == 3:
+            depth = proj[2] + 0.5
+            shade = 0.55 + 0.45 * torch.clamp(depth, 0.0, 1.0)
+        else:
+            shade = torch.ones_like(u)
+        w = shade if weights is None else shade * weights
 
-    fu0 = torch.floor(u)
-    fv0 = torch.floor(v)
-    iu = fu0.to(torch.int64)
-    iv = fv0.to(torch.int64)
-    fu = u - fu0
-    fv = v - fv0
+        fu0 = torch.floor(u)
+        fv0 = torch.floor(v)
+        iu = fu0.to(torch.int64)
+        iv = fv0.to(torch.int64)
+        fu = u - fu0
+        fv = v - fv0
 
-    idx, val = [], []
-    for du, dv, cw in ((0, 0, (1 - fu) * (1 - fv)), (1, 0, fu * (1 - fv)),
-                       (0, 1, (1 - fu) * fv), (1, 1, fu * fv)):
-        px = iu + du
-        py = iv + dv
-        inside = (px >= 0) & (px < width) & (py >= 0) & (py < height)
-        # out-of-frame corners add 0 to pixel 0
-        idx.append(torch.where(inside, py * width + px, 0))
-        val.append(torch.where(inside, w * cw, 0.0))
-    fixed = torch.round(torch.cat(val).double() * FIXED_SCALE).to(torch.int64)
-    fb = torch.zeros(height * width, dtype=torch.int64, device=dev)
-    fb.index_add_(0, torch.cat(idx), fixed)
-    return (fb.double() / FIXED_SCALE).to(torch.float32).reshape(height,
-                                                                 width)
+        idx, val = [], []
+        for du, dv, cw in ((0, 0, (1 - fu) * (1 - fv)), (1, 0, fu * (1 - fv)),
+                           (0, 1, (1 - fu) * fv), (1, 1, fu * fv)):
+            px = iu + du
+            py = iv + dv
+            inside = (px >= 0) & (px < width) & (py >= 0) & (py < height)
+            # out-of-frame corners add 0 to pixel 0
+            idx.append(torch.where(inside, py * width + px, 0))
+            val.append(torch.where(inside, w * cw, 0.0))
+        fixed = torch.round(torch.cat(val).double() * FIXED_SCALE) \
+            .to(torch.int64)
+        fb = torch.zeros(height * width, dtype=torch.int64, device=dev)
+        fb.index_add_(0, torch.cat(idx), fixed)
+        return (fb.double() / FIXED_SCALE).to(torch.float32).reshape(height,
+                                                                     width)
 
 
 def tonemap(fb, gamma: float = 0.45) -> np.ndarray:
-    """Intensity framebuffer -> (H, W, 3) uint8 with a water-like ramp."""
-    if isinstance(fb, torch.Tensor):
-        fb = fb.cpu().numpy()
-    fb = np.asarray(fb, np.float64)
-    scale = np.percentile(fb[fb > 0], 95.0) if (fb > 0).any() else 1.0
-    t = np.clip(fb / max(scale, 1e-9), 0.0, 1.0) ** gamma
-    # deep blue -> cyan -> white ramp
-    r = np.clip(1.8 * t - 0.8, 0.0, 1.0)
-    g = np.clip(1.4 * t - 0.15, 0.0, 1.0)
-    b = np.clip(0.25 + 1.1 * t, 0.0, 1.0) * (t > 0) + 0.04 * (t == 0)
-    img = np.stack([r, g, b], axis=-1)
-    return (img * 255.0 + 0.5).astype(np.uint8)
+    """Intensity framebuffer -> (H, W, 3) uint8 with a water-like ramp.
+    Span ``render.tonemap``."""
+    with profiling.span("render.tonemap"):
+        if isinstance(fb, torch.Tensor):
+            fb = fb.cpu().numpy()
+        fb = np.asarray(fb, np.float64)
+        scale = np.percentile(fb[fb > 0], 95.0) if (fb > 0).any() else 1.0
+        t = np.clip(fb / max(scale, 1e-9), 0.0, 1.0) ** gamma
+        # deep blue -> cyan -> white ramp
+        r = np.clip(1.8 * t - 0.8, 0.0, 1.0)
+        g = np.clip(1.4 * t - 0.15, 0.0, 1.0)
+        b = np.clip(0.25 + 1.1 * t, 0.0, 1.0) * (t > 0) + 0.04 * (t == 0)
+        img = np.stack([r, g, b], axis=-1)
+        return (img * 255.0 + 0.5).astype(np.uint8)
 
 
 def write_png(path: str, img: np.ndarray) -> None:

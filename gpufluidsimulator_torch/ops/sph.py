@@ -22,6 +22,7 @@ import torch
 
 from .. import _build
 from ..models.params import SimParams
+from ..utils import profiling
 from . import kernels, physics
 from . import planes as pm
 from . import route
@@ -571,7 +572,8 @@ def step_pallas(pos, vel, ids, params: SimParams):
     sweep -> halo refresh -> force sweep -> per-particle ``gather`` ->
     integrate.  Returns (pos, vel, rho, pres, ids, overflow) in slot-sorted
     order; ``ids`` carries identity."""
-    return one_slab(pallas_phases(pos, vel, ids, params))
+    with profiling.span("pallas.step"):
+        return one_slab(pallas_phases(pos, vel, ids, params))
 
 
 def pallas_phases(pos, vel, ids, params: SimParams, x_origin=None,
@@ -583,52 +585,60 @@ def pallas_phases(pos, vel, ids, params: SimParams, x_origin=None,
     ``exchange`` (``parallel.sharded.SlabExchange``) it yields
     ``(exchange, stack)`` after binning and for rho after ``halo_x``, and
     takes back the stack with its outermost halo lanes filled from the
-    neighbouring slabs (``parallel.mesh.lockstep``)."""
+    neighbouring slabs (``parallel.mesh.lockstep``).  Its phases are
+    spans (``utils/profiling``), none open across a ``yield``; the step's
+    own span is its caller's."""
     geom = pm.geometry(params)
-    table = pm.build_planes(pos, vel, ids, params, geom, x_origin=x_origin,
-                            active=active)
+    with profiling.span("pallas.binning"):
+        table = pm.build_planes(pos, vel, ids, params, geom,
+                                x_origin=x_origin, active=active)
+        profiling.tally(("drops_cell_capacity",), table.overflow)
     planes = table.planes
     if exchange is not None:
         planes = yield exchange.fields(pm.N_POS_FIELDS), planes
-    occ_q, occ_s = pm.occupancy_bounds(planes, params, geom)
-    rho_p = density_planes(planes[:pm.N_POS_FIELDS], occ_q, occ_s, params,
-                           geom)
-    # the force sweep reads halo lanes as candidates: refresh them from the
-    # owning tiles (in place; particles never bin into halo lanes, so the
-    # gather below reads the same values either way)
-    rho_h = pm.halo_x(rho_p)
+    with profiling.span("pallas.density"):
+        occ_q, occ_s = pm.occupancy_bounds(planes, params, geom)
+        rho_p = density_planes(planes[:pm.N_POS_FIELDS], occ_q, occ_s,
+                               params, geom)
+        # the force sweep reads halo lanes as candidates: refresh them from
+        # the owning tiles (in place; particles never bin into halo lanes,
+        # so the gather below reads the same values either way)
+        rho_h = pm.halo_x(rho_p)
     if exchange is not None:
         # the cross-slab halo lanes of rho (0 at the mesh's edges)
         rho_h = (yield exchange.fields(0), rho_h[None])[0]
-    acc_p = accel_planes(planes, rho_h, occ_q, occ_s, params, geom)
-
-    # one gather for acc (+ the density diagnostic); the reference gathers
-    # rho_d = max(rho, 1e-3 rho0) and its EOS pressure as two more channels,
-    # which are elementwise in rho, so the port computes them per particle
-    stack = (torch.cat([acc_p, rho_p[None]], dim=0) if params.diagnostics
-             else acc_p)
-    out = route.gather(stack, table.slot)
-    ok = table.ok
-    out = torch.where(ok[:, None], out, 0.0)
-    grav = physics.constant(params.gravity + (0.0,) * (3 - params.dim),
-                            out)
-    acc = (out[:, :3] + grav)[:, :params.dim]   # dropped rows: gravity only
-    if params.diagnostics:
-        rho_d = torch.clamp_min(out[:, 3], 1e-3 * params.rest_density)
-        pres = torch.where(ok, physics.eos_pressure(rho_d, params), 0.0)
-        rho = torch.where(ok, rho_d, params.rest_density)
-    else:
-        rho = torch.full_like(out[:, 0], params.rest_density)
-        pres = torch.zeros_like(out[:, 0])
-    if active is not None:
-        active_s = table.ids_s >= 0
-        acc = torch.where(active_s[:, None], acc, 0.0)
-    # the walls may differ from the binning grid: a slab's grid covers the
-    # slab, its walls are the global domain's
-    pos, vel = physics.integrate(table.pos_s, table.vel_s, acc,
-                                 wall_params or params)
-    if active is not None:
-        # free slots stay parked at the sentinel
-        pos = torch.where(active_s[:, None], pos, pm.SENTINEL)
-        vel = torch.where(active_s[:, None], vel, 0.0)
-    return pos, vel, rho, pres, table.ids_s, table.overflow
+    with profiling.span("pallas.force"):
+        acc_p = accel_planes(planes, rho_h, occ_q, occ_s, params, geom)
+    with profiling.span("pallas.gather"):
+        # one gather for acc (+ the density diagnostic); the reference
+        # gathers rho_d = max(rho, 1e-3 rho0) and its EOS pressure as two
+        # more channels, which are elementwise in rho, so the port computes
+        # them per particle
+        stack = (torch.cat([acc_p, rho_p[None]], dim=0)
+                 if params.diagnostics else acc_p)
+        out = route.gather(stack, table.slot)
+        ok = table.ok
+        out = torch.where(ok[:, None], out, 0.0)
+        grav = physics.constant(params.gravity + (0.0,) * (3 - params.dim),
+                                out)
+        # dropped rows: gravity only
+        acc = (out[:, :3] + grav)[:, :params.dim]
+        if params.diagnostics:
+            rho_d = torch.clamp_min(out[:, 3], 1e-3 * params.rest_density)
+            pres = torch.where(ok, physics.eos_pressure(rho_d, params), 0.0)
+            rho = torch.where(ok, rho_d, params.rest_density)
+        else:
+            rho = torch.full_like(out[:, 0], params.rest_density)
+            pres = torch.zeros_like(out[:, 0])
+        if active is not None:
+            active_s = table.ids_s >= 0
+            acc = torch.where(active_s[:, None], acc, 0.0)
+        # the walls may differ from the binning grid: a slab's grid covers
+        # the slab, its walls are the global domain's
+        pos, vel = physics.integrate(table.pos_s, table.vel_s, acc,
+                                     wall_params or params)
+        if active is not None:
+            # free slots stay parked at the sentinel
+            pos = torch.where(active_s[:, None], pos, pm.SENTINEL)
+            vel = torch.where(active_s[:, None], vel, 0.0)
+        return pos, vel, rho, pres, table.ids_s, table.overflow

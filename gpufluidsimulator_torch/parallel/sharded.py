@@ -36,6 +36,7 @@ from ..models.params import SimParams
 from ..models.state import State
 from ..ops import inc, sph
 from ..ops import planes as pm
+from ..utils import profiling
 from .mesh import Mesh, lockstep, make_mesh, shard_leading, shift_pair
 
 
@@ -68,9 +69,10 @@ def _shift(payloads, mesh: Mesh):
     to_left) per slab, each a tuple of tensors -> (from_left, from_right)
     per slab, tuples alike (None at the mesh's edges)."""
     parts = len(next(iter(payloads.values()))[0])
-    got = [shift_pair(mesh, {d: p[0][i] for d, p in payloads.items()},
-                      {d: p[1][i] for d, p in payloads.items()})
-           for i in range(parts)]
+    with profiling.span("sharded.exchange"):
+        got = [shift_pair(mesh, {d: p[0][i] for d, p in payloads.items()},
+                          {d: p[1][i] for d, p in payloads.items()})
+               for i in range(parts)]
 
     def side(d, j):
         vals = tuple(g[j][d] for g in got)
@@ -200,10 +202,11 @@ def exchange_movers(movers, m, x_origin, width: float, mig_cap: int,
 def _ship_movers(payloads, width: float, mig_cap: int, mesh: Mesh):
     """``exchange_movers`` over ``inc.step_phases``' payloads (movers, m,
     x_origin) of each slab."""
-    return exchange_movers({d: p[0] for d, p in payloads.items()},
-                           {d: p[1] for d, p in payloads.items()},
-                           {d: p[2] for d, p in payloads.items()},
-                           width, mig_cap, mesh)
+    with profiling.span("sharded.exchange"):
+        return exchange_movers({d: p[0] for d, p in payloads.items()},
+                               {d: p[1] for d, p in payloads.items()},
+                               {d: p[2] for d, p in payloads.items()},
+                               width, mig_cap, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -232,17 +235,18 @@ class SlabExchange:
         """``stacks``: a dict keyed by this process's slabs.  Returns it,
         its stacks filled."""
         ll = self.last_lane
-        from_left, from_right = shift_pair(
-            self.mesh, {d: s[..., -1, :, ll] for d, s in stacks.items()},
-            {d: s[..., 0, :, 1] for d, s in stacks.items()})
-        for d, s in stacks.items():
-            for dst, src in ((s[..., 0, :, 0], from_left[d]),
-                             (s[..., -1, :, ll + 1], from_right[d])):
-                if src is None:
-                    dst[:n_pos_fields] = pm.SENTINEL
-                    dst[n_pos_fields:] = 0.0
-                else:
-                    dst.copy_(src)
+        with profiling.span("sharded.exchange"):
+            from_left, from_right = shift_pair(
+                self.mesh, {d: s[..., -1, :, ll] for d, s in stacks.items()},
+                {d: s[..., 0, :, 1] for d, s in stacks.items()})
+            for d, s in stacks.items():
+                for dst, src in ((s[..., 0, :, 0], from_left[d]),
+                                 (s[..., -1, :, ll + 1], from_right[d])):
+                    if src is None:
+                        dst[:n_pos_fields] = pm.SENTINEL
+                        dst[n_pos_fields:] = 0.0
+                    else:
+                        dst.copy_(src)
         return stacks
 
     def fields(self, n_pos_fields: int):
@@ -311,10 +315,11 @@ def run_sharded(sstate: ShardedState, params: SimParams, mesh: Mesh,
     ovf = {d: sstate.overflow[d] for d in local}
     mig = {d: sstate.mig_overflow[d] for d in local}
     for _ in range(n_steps):
-        out = lockstep({d: _local_step(*cur[d], params, params_loc,
-                                       nx_local, m_cap, x0[d], exchange,
-                                       mesh)
-                        for d in local})
+        with profiling.span("pallas.step"):
+            out = lockstep({d: _local_step(*cur[d], params, params_loc,
+                                           nx_local, m_cap, x0[d], exchange,
+                                           mesh)
+                            for d in local})
         for d, (p, v, r, pr, i, o, mg) in out.items():
             cur[d] = (p, v, i)
             rho[d], pres[d] = r, pr
@@ -353,20 +358,23 @@ def run_sharded_inc(sstate: ShardedState, params: SimParams, mesh: Mesh,
         mig_cap = max(128, n_cap // 64)
     exchange = make_exchange(mesh, nx_local)
     x0 = {s: slab_origin(params, nx_local, s) for s in local}
-    states = {s: inc.to_planes(sstate.pos[s], sstate.vel[s], sstate.ids[s],
-                               params_loc, geom, x_origin=x0[s],
-                               active=sstate.ids[s] >= 0,
-                               continuity=continuity)
-              for s in local}
+    with profiling.span("inc.to_planes"):
+        states = {s: inc.to_planes(sstate.pos[s], sstate.vel[s],
+                                   sstate.ids[s], params_loc, geom,
+                                   x_origin=x0[s], active=sstate.ids[s] >= 0,
+                                   continuity=continuity)
+                  for s in local}
     for _ in range(n_steps):
-        states = lockstep({s: inc.step_phases(
-            states[s], params_loc, geom, mv_cap, x_origin=x0[s],
-            exchange=exchange, wall_params=params, mig_cap=mig_cap)
-            for s in local})
+        with profiling.span("inc.step"):
+            states = lockstep({s: inc.step_phases(
+                states[s], params_loc, geom, mv_cap, x_origin=x0[s],
+                exchange=exchange, wall_params=params, mig_cap=mig_cap)
+                for s in local})
     out = {f: {} for f in ShardedState._fields}
     for s in local:
         sn = states[s]
-        vals, cnt = inc.to_flat(sn, params_loc, geom, n_cap)
+        with profiling.span("inc.to_flat"):
+            vals, cnt = inc.to_flat(sn, params_loc, geom, n_cap)
         dev = vals.device
         live = torch.arange(vals.shape[1], device=dev) < cnt
         out["pos"][s] = torch.stack(
@@ -507,13 +515,16 @@ class ShardedSim:
                                              n_cap, m_cap)
 
     def step(self, n: int = 1) -> ShardedState:
-        if self.method in ("pallas_inc", "pallas_inc_cont"):
-            self.sstate = run_sharded_inc(
-                self.sstate, self.params, self.mesh, n,
-                continuity=self.method == "pallas_inc_cont")
-        else:
-            self.sstate = run_sharded(self.sstate, self.params, self.mesh,
-                                      n, self.m_cap)
+        """Advance ``n`` steps: one call of the profiling record (span
+        ``sharded.run``)."""
+        with profiling.span("sharded.run"):
+            if self.method in ("pallas_inc", "pallas_inc_cont"):
+                self.sstate = run_sharded_inc(
+                    self.sstate, self.params, self.mesh, n,
+                    continuity=self.method == "pallas_inc_cont")
+            else:
+                self.sstate = run_sharded(self.sstate, self.params,
+                                          self.mesh, n, self.m_cap)
         return self.sstate
 
     def gather(self) -> State:

@@ -111,16 +111,21 @@ def _build_scene(args):
 
 
 def _traced(args, body, stream) -> int:
-    """Run ``body(args)``, inside a profiler trace with --profile-dir."""
+    """Run ``body(args)``, inside a profiler trace with --profile-dir, and
+    then print the program's record of the traced calls
+    (``profiling.format_calls``)."""
     from . import profiling
 
     ctx = (profiling.trace(args.profile_dir) if args.profile_dir
            else contextlib.nullcontext())
+    profiling.take_calls()           # only this trace's calls are printed
     with ctx:
         rc = body(args)
     if args.profile_dir:
         print(f"profiler trace -> {args.profile_dir} "
               f"(TensorBoard / Perfetto)", file=stream)
+        for line in profiling.format_calls(profiling.take_calls()):
+            print(line, file=stream)
     return rc
 
 
@@ -223,7 +228,15 @@ class _ShardedAdapter:
 
 
 def cmd_bench(args) -> int:
-    return _traced(args, _bench_body, sys.stderr)
+    return _traced(args, _bench_call, sys.stderr)
+
+
+def _bench_call(args) -> int:
+    from . import profiling
+
+    # one call of the profiling record, not one a timed step
+    with profiling.span("cli.bench"):
+        return _bench_body(args)
 
 
 def _bench_body(args) -> int:

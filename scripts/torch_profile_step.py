@@ -24,10 +24,11 @@ age starts at 1, as bench.py times it); ``--method gridded`` those of
 integrate) after ``--warm`` gridded steps.  With ``--slabs`` N > 1 an
 incremental method runs sharded over N x slabs of the card in lock step
 (``parallel.sharded``, as ``run_sharded_inc`` steps them) and only the
-whole steps are timed and profiled.  All are averaged over
-``--steps`` steps and followed by a ``torch.profiler`` trace of whole
-steps, summed by kernel name, with the device busy share of that window.
-Prints JSON lines; needs a CUDA card.  Imports nothing of JAX.
+whole steps are timed.  All are averaged over ``--steps`` steps.  Device
+time by kernel and the device's busy share come from the benchmark's
+traced run (``benchmark/run.py --trace 1``), host time by phase from the
+CLI's ``--profile-dir`` record.  Prints JSON lines; needs a CUDA card.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -97,35 +97,26 @@ def main() -> int:
                           "steps": args.steps,
                           "ms_per_step": t0.elapsed_time(t1) / args.steps}),
               flush=True)
-        _profile(torch, step, args.steps, card)
         return 0
     if gridded:
         phases = _gridded_phases(torch, params, sim.state, args.steps)
-        step = sim.step
     elif inc_path:
-        geom = pm.geometry(params)
-        phases, step = _inc_phases(torch, params, geom, sim.state,
-                                   args.steps,
-                                   args.method == "pallas_inc_cont")
+        phases = _inc_phases(torch, params, pm.geometry(params), sim.state,
+                             args.steps, args.method == "pallas_inc_cont")
     else:
         phases = _full_phases(torch, params, pm.geometry(params),
                               sim.state, args.steps)
-        step = sim.step
     print(json.dumps({"phase": "step_breakdown_ms", "card": card,
                       "method": args.method, "scene": args.scene,
                       "particles": state.n, "steps": args.steps,
                       "ms": phases, "sum_ms": sum(phases.values())}),
           flush=True)
-    step(args.steps)                                  # warm the profiled path
-    torch.cuda.synchronize()
-    _profile(torch, step, args.steps, card)
     return 0
 
 
 def _inc_phases(torch, params, geom, state, steps, continuity):
     """CUDA-event phases of ``inc.step_planes`` (its continuity tier with
-    ``continuity``); returns them and a function that runs whole steps on
-    the resident planes."""
+    ``continuity``)."""
     from gpufluidsimulator_torch.ops import inc, sph
     from gpufluidsimulator_torch.ops import planes as pm
 
@@ -184,12 +175,7 @@ def _inc_phases(torch, params, geom, state, steps, continuity):
     phases_movers = movers_total / steps
     print(json.dumps({"phase": "movers_per_step", "movers": phases_movers,
                       "overflow": int(s.overflow)}), flush=True)
-    box = {"s": s}
-
-    def run(n):
-        for _ in range(n):
-            box["s"] = inc.step_planes(box["s"], params, geom, m_cap)
-    return phases, run
+    return phases
 
 
 def _sharded_steps(torch, params, state, slabs, continuity):
@@ -281,36 +267,6 @@ def _full_phases(torch, params, geom, st, steps):
             totals[name] += ev[i].elapsed_time(ev[i + 1])
         st = st._replace(pos=pos, vel=vel, ids=table.ids_s)
     return {k: v / steps for k, v in totals.items()}
-
-
-def _profile(torch, step, steps, card):
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies, fills): the host ops that
-    # launched them report the same device time again
-    rows = []
-    device_total = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = evt.self_device_time_total
-        if dev_us > 0:
-            device_total += dev_us
-            rows.append((dev_us, evt.key, evt.count))
-    rows.sort(reverse=True)
-    print(json.dumps({
-        "phase": "profile", "card": card, "steps": steps,
-        "wall_ms_per_step": wall_ms / steps,
-        "device_ms_per_step": device_total / 1e3 / steps,
-        "device_busy_share": device_total / 1e3 / wall_ms,
-        "top": [{"name": k[:80], "calls": c,
-                 "ms_per_step": us / 1e3 / steps}
-                for us, k, c in rows[:15]]}), flush=True)
 
 
 if __name__ == "__main__":
