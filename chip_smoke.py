@@ -160,8 +160,9 @@ REPS = 20
 # the previous designs' times of the redesigned kernels, as PERF.md
 # section 6 records them (this script on an H100 80GB HBM3 at 700.00 W):
 # force and gather at config 3, the others on the evolved config-4 planes
-PREV_MS = {"force": 0.33824, "force_step": 1.87198,
-           "force_step_cont": 2.80023, "compact": 0.12058,
+PREV_MS = {# the row tile of csrc/tile.cuh, before the z-marching column
+           "force": 0.16429, "force_step": 0.70285,
+           "force_step_cont": 0.80146, "compact": 0.12058,
            "density": 0.46470, "gather": 0.02869, "consolidate": 0.40340,
            "consolidate_rho": 0.47705,
            # occ_rowmax: its device time (torch.profiler), 20 calls in a row

@@ -37,27 +37,37 @@
 // warp ran as long as its fullest cell, and 160 registers (continuity)
 // left 12 warps per SM.
 //
-// This design: the row tile of csrc/tile.cuh (a block of 256 threads per
-// 4 rows x 32 lanes, queries rank-major, one at a thread, candidates staged
-// per dz plane, bounded by occ_q / occ_s and each cell's first sentinel).
-// A staged slot holds two float4, (x, y, z, pterm) and (vx, vy, vz, ir),
-// with the EOS folded once at staging.  Each thread walks its query's 3 x 3
-// staged cells with 4 accumulators (5 with the continuity sum) and its
-// query's 8 values.  The registers are capped at 64, so 4 blocks (32
-// warps) share an SM with their 4 x 52 KB of staging.  Of the variants
-// timed (one row of 128 threads, two rows, 4 ranks a pass, 8 rows of 512
-// threads, no register cap), this tile was the fastest; the register cap
-// mattered most.
+// The second design (the row tile of csrc/tile.cuh: a block of 256 threads
+// per 4 rows x 32 lanes of one plane, candidates staged per dz plane and
+// query round) ran 5.2x this bound (force_step 0.69 to 0.70 ms, 0.80 for
+// force_step_cont): its staging and pair loop took 0.444 ms of 0.705, since
+// each neighbour plane was staged by the three blocks above, at and below
+// it, 6 x 34 cells with every rank's 7 loads for 4 x 32 cells of queries,
+// and again by a tile's second round of queries (17% of the tiles of the
+// evolved scene hold more than 256).
 //
-// Measured (chip_smoke.py, H100 80GB HBM3 at 700.00 W): force_step 0.717
-// ms and force_step_cont 0.808 ms on the evolved double dam break, force
-// 0.169 ms at the 260,850-particle dam break; 5.3x its bytes bound for
-// force_step.  The pair arithmetic, the staging and the fill of the empty
-// slots share the time; the device stays latency-bound (see PERF.md).
-#include "tile.cuh"
+// This design: the z-marching column of csrc/ring.cuh.  A block of 256
+// threads marches FR_Z planes of one 4 x 32 tile; its ring holds the
+// neighbour planes z-1, z, z+1, each compacted to its valid slots and
+// staged once for every query of the column that reads it; a staged slot
+// holds two float4, (x, y, z, pterm) and (vx, vy, vz, ir), with the EOS
+// folded once.  The queries are laid out cell-major (the threads of one
+// cell read the same candidates at once, a broadcast), one at a thread;
+// each walks its 3 x 3 cells one range of slots a row, with 4
+// accumulators (5 with the continuity sum) and its query's 8 values.  The
+// constants are measured (H100 80GB HBM3 at 700 W, force_step on the
+// evolved double dam break, against each other in one process): FR_Z = 2
+// (1: +6%, 3: +1%, 4: +4%, 8: +11%; the fewer planes a column, the more
+// columns share the card and the shorter its last wave), registers capped
+// at 80 for 3 blocks an SM (capped at 64 for 4, they spill: +5%), FR_CAP =
+// 576 slots a plane (640: +4%, a ring that leaves the loads less L1; at
+// 576, 22 of the scene's planes a launch take windows), cell-major queries
+// (rank-major: +4%) and a pair loop unrolled twice (not unrolled: +4%;
+// four times: +3%).
+#include "ring.cuh"
 
 #define FK_MAX_OBS 4
-#define FK_MIN_BLOCKS 4         // blocks an SM: caps registers at 64
+#define FK_MIN_BLOCKS 3         // blocks an SM: caps registers at 80
 
 struct FkEos {
     float rho0, rho_floor;     // rest density, 1e-3 * rest density
@@ -273,21 +283,23 @@ __device__ __forceinline__ void fk_fill(float* out, float* flag,
     }
 }
 
-// One block per tile of FK_TILE_ROWS rows x 32 lanes (see the note at the
-// top and csrc/tile.cuh).  Dynamic shared memory: 2 * SR * FK_STAGE_CELLS
-// float4, the staged (x, y, z, pterm) and (vx, vy, vz, ir) of one dz
-// plane's pass of SR ranks, rank-major.
+// One block per column of FR_Z planes of a tile of FK_TILE_ROWS rows x 32
+// lanes (see the note at the top and csrc/ring.cuh).  Dynamic shared
+// memory: 2 * FR_CAP float4 a ring plane, the staged (x, y, z, pterm) and
+// (vx, vy, vz, ir) of its compacted slots; FR_RING planes in 3D, one in
+// 2D.  ring_ovf: the count of ring planes that overflowed.
 template <int KMAX, int DIM, bool FUSE, int CONT>
 __global__ void __launch_bounds__(FK_THREADS, FK_MIN_BLOCKS)
 force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
              FkOcc occ, float* __restrict__ acc_out,
              float* __restrict__ flag_out, float* __restrict__ rho_out,
-             FkGeom g, float h, FkEos e, FkStep st, FkCont ct) {
-    constexpr int SR = fk_stage_ranks<KMAX>();
+             int* __restrict__ ring_ovf, FkGeom g, float h, FkEos e,
+             FkStep st, FkCont ct) {
+    constexpr int CAP = FR_CAP;
     extern __shared__ float4 fk_stage[];
     float4* s_a = fk_stage;
-    float4* s_b = fk_stage + SR * FK_STAGE_CELLS;
-    __shared__ int s_cnt[FK_STAGE_CELLS];
+    float4* s_b = fk_stage + (DIM == 3 ? FR_RING : 1) * CAP;
+    __shared__ FrRing ring;
     __shared__ FkQueries<KMAX> sq;
 
     const long long cells = g.cells;
@@ -299,154 +311,203 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
     const float* VY = fields + 4 * ch;
     const float* VZ = fields + 5 * ch;
 
-    const FkTile t = fk_tile<DIM>(g, occ);
-    const int nq = fk_tile_queries<KMAX, false, DIM>(X, g, t, occ, sq);
-    fk_tile_fill<KMAX>(g, t, sq, [&](long long s) {
-        fk_fill<FUSE, CONT>(acc_out, flag_out, rho_out, s, ch);
-    });
+    // a staged slot (valid) into ring index i: its 7 loads in flight at
+    // once, the EOS folded
+    const auto stage = [&](int i, long long s) {
+        const float x = X[s];
+        const float yv = Y[s], zv = DIM == 3 ? Z[s] : 0.0f;
+        const float vxv = VX[s], vyv = VY[s];
+        const float vzv = DIM == 3 ? VZ[s] : 0.0f;
+        float cp, cir;
+        fk_eos_terms(rho[s], e, &cp, &cir);
+        s_a[i] = make_float4(x, yv, zv, cp);
+        s_b[i] = make_float4(vxv, vyv, vzv, cir);
+    };
 
-    for (int q0 = 0; q0 < nq; q0 += FK_THREADS) {
-        const int j = q0 + (int)threadIdx.x;
-        const bool active = j < nq;
-        FkQuery q{0, 0, 0};
-        float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-        float qvx = 0.0f, qvy = 0.0f, qvz = 0.0f;
-        float qp = 0.0f, qir = 0.0f, qdel = 0.0f;
-        if (active) {
-            q = fk_tile_query<KMAX>(sq, j, t, cells);
-            const long long s = q.s;
-            qx = X[s];
-            qy = Y[s];
-            qvx = VX[s];
-            qvy = VY[s];
-            if (DIM == 3) {
-                qz = Z[s];
-                qvz = VZ[s];
-            }
-            const float rq = rho[s];
-            fk_eos_terms(rq, e, &qp, &qir);
-            if (CONT == FK_CONT_DELTA) qdel = rq * ct.kappa_over_mv;
-        }
-        float ax = 0.0f, ay = 0.0f, az = 0.0f, sv = 0.0f, sr = 0.0f;
-        // a staged slot: its 7 loads in flight at once, the EOS folded
-        const auto stage = [&](int i, long long s) {
-            const float x = X[s];
-            const float yv = Y[s], zv = DIM == 3 ? Z[s] : 0.0f;
-            const float vxv = VX[s], vyv = VY[s];
-            const float vzv = DIM == 3 ? VZ[s] : 0.0f;
-            const float rv = rho[s];
-            if (!(x < FK_HALF_SENTINEL)) return false;
-            float cp, cir;
-            fk_eos_terms(rv, e, &cp, &cir);
-            s_a[i] = make_float4(x, yv, zv, cp);
-            s_b[i] = make_float4(vxv, vyv, vzv, cir);
-            return true;
-        };
-        const auto pair = [&](int c) {
-            const float4 ca = s_a[c];
-            const float4 cb = s_b[c];
-            const float ddx = qx - ca.x;
-            const float ddy = qy - ca.y;
-            float r2 = ddx * ddx + ddy * ddy;
-            float ddz = 0.0f;
-            if (DIM == 3) {
-                ddz = qz - ca.z;
-                r2 = r2 + ddz * ddz;
-            }
-            const float inv_r = rsqrtf(fmaxf(r2, 1e-16f));
-            const float r = r2 * inv_r;
-            const float hr = fmaxf(h - r, 0.0f);
-            float psum = qp + ca.w;
-            if constexpr (CONT != FK_CONT_NONE) {
-                float dot = (qvx - cb.x) * ddx + (qvy - cb.y) * ddy;
-                if (DIM == 3) dot = dot + (qvz - cb.z) * ddz;
-                const float d2 = fmaxf(ct.h2 - r2, 0.0f);
-                const float d4 = d2 * d2;
-                const float t_dot = d4 * dot;
-                if (ct.use_corr)
-                    psum = psum - fminf(fmaxf(ct.c_corr * t_dot,
-                                              -ct.corr_cap), ct.corr_cap);
-                if (ct.use_alpha) {
-                    const float rr = rsqrtf(r2 + ct.eps_h2);
-                    psum = psum - ct.c_av * fminf(dot * (rr * rr), 0.0f);
-                }
-                if constexpr (CONT == FK_CONT_SUM)
-                    sr += d4 * d2;
-                else if constexpr (CONT == FK_CONT_RELAX)
-                    sr += d4 * (dot + ct.kappa_d2 * d2);
-                else if constexpr (CONT == FK_CONT_DELTA)
-                    sr += d4 * ((dot - ct.kappa) + qdel * cb.w);
-                else
-                    sr += t_dot;
-            }
-            const float coef_p = psum * (hr * hr * inv_r);
-            const float coef_v = hr * (qir * cb.w);
-            sv += coef_v;
-            ax += coef_p * ddx + coef_v * cb.x;
-            ay += coef_p * ddy + coef_v * cb.y;
-            if (DIM == 3) az += coef_p * ddz + coef_v * cb.z;
-        };
-        fk_tile_sweep<DIM, SR>(t, g, sq.kz, s_cnt, stage,
-                               [&](int r0, int rn) {
-            if (active) fk_tile_pairs(s_cnt, q.qr, q.l, r0, rn, pair);
+    const FrColumn col = fr_column(g);
+    // the ring holds the planes lo .. hi (none while hi < lo), plane p in
+    // ring slot p % FR_RING (block-uniform)
+    int lo = 0, hi = -1;
+    for (int z = col.z0; z < col.z1; ++z) {
+        __syncthreads();          // the last plane's readers are done
+        const FkTile t = fr_tile<DIM>(g, occ, col, z);
+        const int nq = fk_tile_queries<KMAX, true, DIM>(X, g, t, occ, sq);
+        fk_tile_fill<KMAX>(g, t, sq, [&](long long s) {
+            fk_fill<FUSE, CONT>(acc_out, flag_out, rho_out, s, ch);
         });
-        if (!active) continue;
-        const long long s = q.s;
-        ax = ax - qvx * sv;
-        ay = ay - qvy * sv;
-        az = DIM == 3 ? az - qvz * sv : 0.0f;
-        if constexpr (FUSE) {
-            const FkCell cc{t.lane0 + q.l, t.y0 + q.qr, t.xo, t.z};
-            force_step_epilogue<DIM>(qx, qy, qz, qvx, qvy, qvz, ax, ay, az,
-                                     st, cc, g, acc_out, flag_out, s, ch);
-            if constexpr (CONT == FK_CONT_SUM) {
-                rho_out[s] = ct.rho_sum_scale * sr;
-            } else if constexpr (CONT != FK_CONT_NONE) {
-                const float rho_q = rho[s];     // raw, reread
-                float rn = rho_q + ct.drho_scale * sr;
-                if (CONT == FK_CONT_RELAX) rn = ct.one_m_l * rn;
-                rho_out[s] = rn;
+        if (nq == 0) continue;
+        // stage the neighbour planes the ring lacks, lowest first
+        for (int dz = (DIM == 3 ? -1 : 0); dz <= (DIM == 3 ? 1 : 0); ++dz) {
+            const int p = z + dz;
+            if (p >= lo && p <= hi) continue;
+            if (p != hi + 1) lo = p;
+            hi = p;
+            lo = max(lo, hi - (FR_RING - 1));
+            const int slot = DIM == 3 ? p % FR_RING : 0;
+            int* off = ring.off[slot];
+            fr_count<KMAX>(X, g, t, dz, sq.kz[dz + 1], off, ring.wsum);
+            const int total = off[FK_STAGE_CELLS];
+            if (total <= CAP) {
+                fr_stage(t, g, dz, off, 0, total, [&](int i, long long sl) {
+                    stage(slot * CAP + i, sl);
+                });
+            } else if (threadIdx.x == 0) {
+                atomicAdd(ring_ovf, 1);
             }
-        } else {
-            acc_out[s] = ax;
-            acc_out[ch + s] = ay;
-            acc_out[2 * ch + s] = az;
+        }
+        __syncthreads();
+
+        for (int q0 = 0; q0 < nq; q0 += FK_THREADS) {
+            const int j = q0 + (int)threadIdx.x;
+            const bool active = j < nq;
+            FkQuery q{0, 0, 0};
+            float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+            float qvx = 0.0f, qvy = 0.0f, qvz = 0.0f;
+            float qp = 0.0f, qir = 0.0f, qdel = 0.0f;
+            if (active) {
+                q = fk_tile_query<KMAX>(sq, j, t, cells);
+                const long long s = q.s;
+                qx = X[s];
+                qy = Y[s];
+                qvx = VX[s];
+                qvy = VY[s];
+                if (DIM == 3) {
+                    qz = Z[s];
+                    qvz = VZ[s];
+                }
+                const float rq = rho[s];
+                fk_eos_terms(rq, e, &qp, &qir);
+                if (CONT == FK_CONT_DELTA) qdel = rq * ct.kappa_over_mv;
+            }
+            float ax = 0.0f, ay = 0.0f, az = 0.0f, sv = 0.0f, sr = 0.0f;
+            const auto pair = [&](int c) {
+                const float4 ca = s_a[c];
+                const float4 cb = s_b[c];
+                const float ddx = qx - ca.x;
+                const float ddy = qy - ca.y;
+                float r2 = ddx * ddx + ddy * ddy;
+                float ddz = 0.0f;
+                if (DIM == 3) {
+                    ddz = qz - ca.z;
+                    r2 = r2 + ddz * ddz;
+                }
+                const float inv_r = rsqrtf(fmaxf(r2, 1e-16f));
+                const float r = r2 * inv_r;
+                const float hr = fmaxf(h - r, 0.0f);
+                float psum = qp + ca.w;
+                if constexpr (CONT != FK_CONT_NONE) {
+                    float dot = (qvx - cb.x) * ddx + (qvy - cb.y) * ddy;
+                    if (DIM == 3) dot = dot + (qvz - cb.z) * ddz;
+                    const float d2 = fmaxf(ct.h2 - r2, 0.0f);
+                    const float d4 = d2 * d2;
+                    const float t_dot = d4 * dot;
+                    if (ct.use_corr)
+                        psum = psum - fminf(fmaxf(ct.c_corr * t_dot,
+                                                  -ct.corr_cap), ct.corr_cap);
+                    if (ct.use_alpha) {
+                        const float rr = rsqrtf(r2 + ct.eps_h2);
+                        psum = psum - ct.c_av * fminf(dot * (rr * rr), 0.0f);
+                    }
+                    if constexpr (CONT == FK_CONT_SUM)
+                        sr += d4 * d2;
+                    else if constexpr (CONT == FK_CONT_RELAX)
+                        sr += d4 * (dot + ct.kappa_d2 * d2);
+                    else if constexpr (CONT == FK_CONT_DELTA)
+                        sr += d4 * ((dot - ct.kappa) + qdel * cb.w);
+                    else
+                        sr += t_dot;
+                }
+                const float coef_p = psum * (hr * hr * inv_r);
+                const float coef_v = hr * (qir * cb.w);
+                sv += coef_v;
+                ax += coef_p * ddx + coef_v * cb.x;
+                ay += coef_p * ddy + coef_v * cb.y;
+                if (DIM == 3) az += coef_p * ddz + coef_v * cb.z;
+            };
+            for (int dz = (DIM == 3 ? -1 : 0); dz <= (DIM == 3 ? 1 : 0);
+                 ++dz) {
+                const int slot = DIM == 3 ? (z + dz) % FR_RING : 0;
+                const int* off = ring.off[slot];
+                const int total = off[FK_STAGE_CELLS];
+                const int base = slot * CAP;
+                const auto pair_at = [&](int c) { pair(base + c); };
+                if (total <= CAP) {
+                    if (active) fr_pairs(off, q.qr, q.l, 0, CAP, pair_at);
+                    continue;
+                }
+                // an overflowed plane: a window of CAP slots at a time
+                for (int w0 = 0; w0 < total; w0 += CAP) {
+                    __syncthreads();      // the last window's readers are done
+                    fr_stage(t, g, dz, off, w0, min(w0 + CAP, total),
+                             [&](int i, long long sl) {
+                                 stage(base + i, sl);
+                             });
+                    __syncthreads();
+                    if (active)
+                        fr_pairs(off, q.qr, q.l, w0, w0 + CAP, pair_at);
+                }
+            }
+            if (!active) continue;
+            const long long s = q.s;
+            ax = ax - qvx * sv;
+            ay = ay - qvy * sv;
+            az = DIM == 3 ? az - qvz * sv : 0.0f;
+            if constexpr (FUSE) {
+                const FkCell cc{t.lane0 + q.l, t.y0 + q.qr, t.xo, t.z};
+                force_step_epilogue<DIM>(qx, qy, qz, qvx, qvy, qvz, ax, ay,
+                                         az, st, cc, g, acc_out, flag_out, s,
+                                         ch);
+                if constexpr (CONT == FK_CONT_SUM) {
+                    rho_out[s] = ct.rho_sum_scale * sr;
+                } else if constexpr (CONT != FK_CONT_NONE) {
+                    const float rho_q = rho[s];     // raw, reread
+                    float rn = rho_q + ct.drho_scale * sr;
+                    if (CONT == FK_CONT_RELAX) rn = ct.one_m_l * rn;
+                    rho_out[s] = rn;
+                }
+            } else {
+                acc_out[s] = ax;
+                acc_out[ch + s] = ay;
+                acc_out[2 * ch + s] = az;
+            }
         }
     }
 }
 
-// Dynamic shared memory of one block: two float4 per staged slot of a pass
-template <int KMAX>
+// Dynamic shared memory of one block: two float4 per slot of each ring
+// plane
+template <int DIM>
 constexpr int fk_stage_bytes() {
-    return 2 * fk_stage_ranks<KMAX>() * FK_STAGE_CELLS * (int)sizeof(float4);
+    return 2 * (DIM == 3 ? FR_RING : 1) * FR_CAP * (int)sizeof(float4);
 }
 
 template <int KMAX, int DIM, bool FUSE, int CONT>
 static int launch_force(const float* fields, const float* rho,
                         const FkOcc& occ, float* out, float* flag,
-                        float* rho_out, const FkGeom& g, float h,
-                        const FkEos& e, const FkStep& s, const FkCont& ct,
-                        cudaStream_t st) {
+                        float* rho_out, int* ring_ovf, const FkGeom& g,
+                        float h, const FkEos& e, const FkStep& s,
+                        const FkCont& ct, cudaStream_t st) {
+    constexpr int bytes = fk_stage_bytes<DIM>();
     // past 48 KB with the static part: once per instantiation and device
     static FkOptIn opt_in;
     const cudaError_t err = opt_in(force_kernel<KMAX, DIM, FUSE, CONT>,
-                                   fk_stage_bytes<KMAX>());
+                                   bytes);
     if (err != cudaSuccess) return (int)err;
-    const long long blocks = g.cells / (FK_TILE_LANES * FK_TILE_ROWS);
     force_kernel<KMAX, DIM, FUSE, CONT>
-        <<<(unsigned)blocks, FK_THREADS, fk_stage_bytes<KMAX>(), st>>>(
-            fields, rho, occ, out, flag, rho_out, g, h, e, s, ct);
+        <<<(unsigned)fr_blocks(g), FK_THREADS, bytes, st>>>(
+            fields, rho, occ, out, flag, rho_out, ring_ovf, g, h, e, s, ct);
     return (int)cudaGetLastError();
 }
 
-// One block per tile of FK_TILE_ROWS rows x 32 lanes: the rows of a
-// (z, x tile) plane (py of them, a multiple of 8) lie in whole tiles
+// One block per column of FR_Z planes of a tile of FK_TILE_ROWS rows x 32
+// lanes: the rows of a (z, x tile) plane (py of them, a multiple of 8) lie
+// in whole tiles
 template <bool FUSE, int CONT>
 static int force_entry(const float* fields, const float* rho,
                        const FkOcc& occ, float* out, float* flag,
-                       float* rho_out, const FkGeom& g, float h,
-                       const FkEos& e, const FkStep& s, const FkCont& ct,
-                       void* stream) {
+                       float* rho_out, int* ring_ovf, const FkGeom& g,
+                       float h, const FkEos& e, const FkStep& s,
+                       const FkCont& ct, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (g.cells % FK_LANES != 0 || g.py % FK_TILE_ROWS != 0
         || (g.dim != 2 && g.dim != 3) || g.k < 1 || g.k > 16)
@@ -454,28 +515,33 @@ static int force_entry(const float* fields, const float* rho,
     if (g.k <= 8)
         return g.dim == 3
             ? launch_force<8, 3, FUSE, CONT>(fields, rho, occ, out, flag,
-                                             rho_out, g, h, e, s, ct, st)
+                                             rho_out, ring_ovf, g, h, e, s,
+                                             ct, st)
             : launch_force<8, 2, FUSE, CONT>(fields, rho, occ, out, flag,
-                                             rho_out, g, h, e, s, ct, st);
+                                             rho_out, ring_ovf, g, h, e, s,
+                                             ct, st);
     return g.dim == 3
         ? launch_force<16, 3, FUSE, CONT>(fields, rho, occ, out, flag,
-                                          rho_out, g, h, e, s, ct, st)
+                                          rho_out, ring_ovf, g, h, e, s, ct,
+                                          st)
         : launch_force<16, 2, FUSE, CONT>(fields, rho, occ, out, flag,
-                                          rho_out, g, h, e, s, ct, st);
+                                          rho_out, ring_ovf, g, h, e, s, ct,
+                                          st);
 }
 
-// The dynamic shared memory (bytes) of one force block at cell capacity
+// The dynamic shared memory (bytes) of one 3D force block at cell capacity
 // k, -1 past 16; each mode's kernel adds its static part (-Xptxas -v)
 extern "C" int fk_force_smem(int k) {
     if (k < 1 || k > 16) return -1;
-    return k <= 8 ? fk_stage_bytes<8>() : fk_stage_bytes<16>();
+    return fk_stage_bytes<3>();
 }
 
 // occ_q, occ_s: sph.accel_planes' bounds (int32, any strides); ostr: their
 // 7 strides in elements, a host array
 extern "C" int fk_force(const float* fields, const float* rho,
                         const int* occ_q, const int* occ_s,
-                        const long long* ostr, float* out, int dim, int k,
+                        const long long* ostr, float* out, int* ring_ovf,
+                        int dim, int k,
                         int nx, int ny, int nz, int n_bx, int py, int pz,
                         long long cells, float h, float rho0,
                         float rho_floor, float stiffness, int tait,
@@ -486,7 +552,7 @@ extern "C" int fk_force(const float* fields, const float* rho,
                   clamp, m_spiky, m_visc_sqrt};
     return force_entry<false, FK_CONT_NONE>(
         fields, rho, fk_occ_from(occ_q, occ_s, ostr), out, nullptr, nullptr,
-        g, h, e, FkStep{}, FkCont{}, stream);
+        ring_ovf, g, h, e, FkStep{}, FkCont{}, stream);
 }
 
 // FkStep from the host float array of sph._step_args: dt, -restitution,
@@ -520,7 +586,8 @@ static FkStep fk_step_from(const float* step, int n_obs) {
 extern "C" int fk_force_step(const float* fields, const float* rho,
                              const int* occ_q, const int* occ_s,
                              const long long* ostr, float* new6, float* flag,
-                             int dim, int k, int nx, int ny, int nz,
+                             int* ring_ovf, int dim, int k, int nx, int ny,
+                             int nz,
                              int n_bx, int py, int pz, long long cells,
                              float h, float rho0, float rho_floor,
                              float stiffness, int tait, float tait_b,
@@ -533,7 +600,7 @@ extern "C" int fk_force_step(const float* fields, const float* rho,
                   clamp, m_spiky, m_visc_sqrt};
     return force_entry<true, FK_CONT_NONE>(
         fields, rho, fk_occ_from(occ_q, occ_s, ostr), new6, flag, nullptr,
-        g, h, e, fk_step_from(step, n_obs), FkCont{}, stream);
+        ring_ovf, g, h, e, fk_step_from(step, n_obs), FkCont{}, stream);
 }
 
 // rho: the CARRIED density (halo lanes refreshed); rho_out: next step's.
@@ -542,9 +609,10 @@ extern "C" int fk_force_step(const float* fields, const float* rho,
 extern "C" int fk_force_step_cont(const float* fields, const float* rho,
                                   const int* occ_q, const int* occ_s,
                                   const long long* ostr, float* new6,
-                                  float* rho_out, float* flag, int dim,
-                                  int k, int nx, int ny, int nz, int n_bx,
-                                  int py, int pz, long long cells, float h,
+                                  float* rho_out, float* flag,
+                                  int* ring_ovf, int dim, int k, int nx,
+                                  int ny, int nz, int n_bx, int py, int pz,
+                                  long long cells, float h,
                                   float rho0, float rho_floor,
                                   float stiffness, int tait, float tait_b,
                                   float tait_gamma, float m_spiky,
@@ -564,20 +632,20 @@ extern "C" int fk_force_step_cont(const float* fields, const float* rho,
     switch (form) {
         case FK_CONT_RATE:
             return force_entry<true, FK_CONT_RATE>(
-                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
-                stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
+                ct, stream);
         case FK_CONT_RELAX:
             return force_entry<true, FK_CONT_RELAX>(
-                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
-                stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
+                ct, stream);
         case FK_CONT_SUM:
             return force_entry<true, FK_CONT_SUM>(
-                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
-                stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
+                ct, stream);
         case FK_CONT_DELTA:
             return force_entry<true, FK_CONT_DELTA>(
-                fields, rho, occ, new6, flag, rho_out, g, h, e, s, ct,
-                stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
+                ct, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }

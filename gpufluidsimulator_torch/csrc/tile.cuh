@@ -1,26 +1,28 @@
-// The row tile of the rank-plane sweeps, shared by csrc/force.cu (kernel 4,
-// all three modes) and csrc/density.cu (kernel 3).
+// The row tile of the rank-plane sweeps: csrc/density.cu (kernel 3) runs
+// on it whole; csrc/force.cu (kernel 4, all three modes) marches it up a
+// column of z planes (csrc/ring.cuh) and takes from here the bounds
+// (FkOcc), the tile (FkTile), its query layout and its fill.
 //
 // A block of FK_THREADS threads owns a tile of FK_TILE_ROWS rows x 32 lanes
 // of one (z, x tile) plane, inside one 8-row block.  Warp w counts the
 // valid ranks of row w's lanes (bounded by the block's occ_q, stopping at
 // the first sentinel) and lays that row's queries out, one a thread
-// (fk_tile_queries): rank-major with ballots (the force kernels: threads
-// take neighbouring lanes of one rank) or cell-major with a lane scan (the
-// density kernel: threads of one cell share its neighbours); meanwhile one
-// more warp loads the tile's occ_s for the sweep.  Every slot that holds
-// no query is written by one coalesced sweep (fk_tile_fill).  A tile whose
+// (fk_tile_queries): rank-major with ballots (threads take neighbouring
+// lanes of one rank) or cell-major with a lane scan (threads of one cell
+// share its neighbours; both sweeps lay them out so); meanwhile one more
+// warp loads the tile's occ_s for the sweep.  Every slot that holds no
+// query is written by one coalesced sweep (fk_tile_fill).  A tile whose
 // occ_q is 0, or that holds no interior row, has no query, so it only
-// fills and stages nothing.  The candidates are staged into shared memory
-// one dz plane at a time (fk_tile_sweep): a plane whose occ_s is 0 is
-// skipped, the others' 6 rows x 34 lanes around the tile are staged one
-// thread per slot with every load in flight at once, ranks below occ_s,
-// FK_STAGE_RANKS a pass (K = 16 takes two), rank-major so a warp reads
-// neighbouring cells without bank conflicts; a cell's count falls to its
-// first sentinel rank.  Each thread then takes one query (FK_THREADS at a
-// time) and walks its 3 x 3 staged cells of each plane (fk_tile_pairs, or
-// the kernel's own walk).  What a slot stages, what a pair adds and what a
-// fill writes are the kernels' own (functors).
+// fills and stages nothing.  The density sweep stages its candidates into
+// shared memory one dz plane at a time (fk_tile_sweep): a plane whose
+// occ_s is 0 is skipped, the others' 6 rows x 34 lanes around the tile are
+// staged one thread per slot with every load in flight at once, ranks
+// below occ_s, FK_STAGE_RANKS a pass (K = 16 takes two), rank-major so a
+// warp reads neighbouring cells without bank conflicts; a cell's count
+// falls to its first sentinel rank.  Each thread then takes one query
+// (FK_THREADS at a time) and walks its 3 x 3 staged cells of each plane.
+// What a slot stages, what a pair adds and what a fill writes are the
+// kernels' own (functors).
 #pragma once
 
 #include "common.cuh"
@@ -252,22 +254,6 @@ __device__ __forceinline__ void fk_tile_sweep(const FkTile& t, const FkGeom& g,
             }
             __syncthreads();
             pairs(r0, rn);
-        }
-    }
-}
-
-// pair(i) for each valid staged rank of the query at tile row qr, lane l
-// (one dz plane staged a pass), i its staged index: the 3 x 3 cells in the
-// order dy, dx, rank
-template <class Pair>
-__device__ __forceinline__ void fk_tile_pairs(const int* cnt, int qr, int l,
-                                              int r0, int rn, Pair pair) {
-    for (int dy = 0; dy < 3; ++dy) {
-        for (int dx = 0; dx < 3; ++dx) {
-            const int ci = (qr + dy) * FK_STAGE_LANES + l + dx;
-            const int hi = min(cnt[ci], r0 + rn) - r0;
-            for (int c2 = 0; c2 < hi; ++c2)
-                pair(c2 * FK_STAGE_CELLS + ci);
         }
     }
 }

@@ -29,8 +29,12 @@ from . import route
 from .planes import LANES, PlaneGeom
 
 # The CUDA sweeps take up to this many ranks a cell (csrc/tile.cuh lays
-# out up to 16 query ranks a cell and stages them in two passes)
+# out up to 16 query ranks a cell)
 MAX_KERNEL_K = 16
+# the record's counter of the force kernels' ring planes that overflowed
+# (csrc/ring.cuh: planes staged and walked in windows); 0 on the CPU
+RING_OVERFLOWS = "force_ring_overflows"
+_ring_counters = {}    # device -> its force kernels' running count
 
 
 def _offsets(dim: int):
@@ -77,6 +81,36 @@ def _occ_args(occ_q, occ_s):
     strides = (ctypes.c_longlong * 7)(*occ_q.stride(), *occ_s.stride())
     return [_build.ptr(occ_q), _build.ptr(occ_s),
             ctypes.cast(strides, ctypes.c_void_p)]
+
+
+def _ring_counter(device: torch.device) -> torch.Tensor:
+    """The int32 counter a force kernel adds its ring-plane overflows to:
+    a fresh one inside a recorded call (``_tally_ring`` adds it to the
+    call's record), else the device's running count (``ring_overflows``).
+    The kernels touch it only on an overflow."""
+    if profiling.recording():
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    if device not in _ring_counters:
+        _ring_counters[device] = torch.zeros(1, dtype=torch.int32,
+                                             device=device)
+    return _ring_counters[device]
+
+
+def _tally_ring(counter: torch.Tensor) -> None:
+    """Add a force launch's counter to the recorded call (after the launch:
+    the tally copies it)."""
+    profiling.tally((RING_OVERFLOWS,), counter[0])
+
+
+def ring_overflows(device) -> int:
+    """The force kernels' ring planes on ``device`` that overflowed and were
+    staged in windows, in launches made while no profiler session
+    recorded (a recorded call counts its own, ``RING_OVERFLOWS``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counter = _ring_counters.get(device)
+    return 0 if counter is None else int(counter[0])
 
 
 def _geom_args(geom: PlaneGeom):
@@ -307,7 +341,9 @@ def accel_planes(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     The kernel skips an 8-row block whose ``occ_q`` is 0 and bounds its
     rank loops by ``occ_q``/``occ_s``, so they must come from these planes
     (``planes.occupancy_bounds``)."""
+    ring = _ring_counter(field_planes.device)
     if field_planes.device.type == "cpu":
+        _tally_ring(ring)
         return accel_plain(field_planes, rho_planes, params, geom)
     shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
     _build.check_tensor(field_planes, "field_planes", torch.float32,
@@ -319,7 +355,8 @@ def accel_planes(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     _build.launch("force", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
                   *_occ_args(occ_q, occ_s), _build.ptr(out),
-                  *_geom_args(geom), *_eos_args(params))
+                  _build.ptr(ring), *_geom_args(geom), *_eos_args(params))
+    _tally_ring(ring)
     return out
 
 
@@ -434,7 +471,9 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     ``wall_params``): the CUDA kernel ``force_step`` on the card, the plain
     version for CPU tensors.  ``rho_planes`` must carry refreshed halo
     lanes."""
+    ring = _ring_counter(field_planes.device)
     if field_planes.device.type == "cpu":
+        _tally_ring(ring)
         return accel_step_plain(field_planes, rho_planes, params, geom,
                                 x_origin, wall_params)
     shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
@@ -447,9 +486,11 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     _build.launch("force_step", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
                   *_occ_args(occ_q, occ_s), _build.ptr(new6),
-                  _build.ptr(flagp), *_geom_args(geom), *_eos_args(params),
+                  _build.ptr(flagp), _build.ptr(ring), *_geom_args(geom),
+                  *_eos_args(params),
                   ctypes.cast(step, ctypes.c_void_p),
                   ctypes.c_int(len((wall_params or params).obstacles)))
+    _tally_ring(ring)
     return new6, flagp
 
 
@@ -529,7 +570,9 @@ def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     ``accel_step_cont_plain``): the CUDA kernel ``force_step_cont`` on the
     card, the plain version for CPU tensors.  ``rho_planes`` is the carried
     density with refreshed halo lanes."""
+    ring = _ring_counter(field_planes.device)
     if field_planes.device.type == "cpu":
+        _tally_ring(ring)
         return accel_step_cont_plain(field_planes, rho_planes, params, geom,
                                      x_origin, wall_params)
     shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
@@ -542,10 +585,12 @@ def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     _build.launch("force_step_cont", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
                   *_occ_args(occ_q, occ_s), _build.ptr(new6),
-                  _build.ptr(rho_new), _build.ptr(flagp), *_geom_args(geom),
+                  _build.ptr(rho_new), _build.ptr(flagp), _build.ptr(ring),
+                  *_geom_args(geom),
                   *_eos_args(params), ctypes.cast(step, ctypes.c_void_p),
                   ctypes.c_int(len((wall_params or params).obstacles)),
                   *_cont_args(params))
+    _tally_ring(ring)
     return new6, rho_new, flagp
 
 

@@ -26,8 +26,10 @@ rebuild ``pallas.binning``, ``pallas.density``, ``pallas.force``,
 ``pallas.gather``; ``sharded.exchange``; ``render.splat``,
 ``render.tonemap``.  Counters: ``movers`` (rows ``compact`` keeps),
 ``flagged`` (slots it found flagged), ``drops_cell_capacity`` (a
-binning's and ``consolidate``'s drops); ``drops_mover_capacity`` is
-``flagged - movers``.  A call also holds its steps (the count of its step
+binning's and ``consolidate``'s drops), ``force_ring_overflows`` (the
+force kernels' staged planes past their ring's capacity,
+``sph.RING_OVERFLOWS``); ``drops_mover_capacity`` is ``flagged -
+movers``.  A call also holds its steps (the count of its step
 spans) and its launches of each hand-written kernel
 (``_build.launches``).
 """
@@ -216,6 +218,11 @@ class _Span:
         return False
 
 
+def recording() -> bool:
+    """Whether a profiler session records (spans and tallies are live)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def span(name: str):
     """A context for one phase of the program: the shared null context
     when no profiler session records, else a ``record_function`` range
@@ -276,8 +283,8 @@ def take_calls() -> List[dict]:
 
 def format_calls(entries: List[dict]) -> List[str]:
     """Lines of text for ``calls()``' entries: per call each span's count,
-    host ms and self ms, the movers a step, the drops by cause and the
-    launches by kernel."""
+    host ms and self ms, the movers a step, the drops by cause, the force
+    kernels' ring overflows and the launches by kernel."""
     lines = []
     for i, e in enumerate(entries):
         lines.append(f"call {i}: {e['name']}, {e['steps']} steps")
@@ -294,6 +301,9 @@ def format_calls(entries: List[dict]) -> List[str]:
             lines.append("  drops: " + ", ".join(
                 f"{k.replace('_', ' ')} {v}"
                 for k, v in sorted(drops.items())))
+        if "force_ring_overflows" in c:
+            lines.append(f"  force ring overflows "
+                         f"{c['force_ring_overflows']}")
         if e["launches"]:
             lines.append("  launches: " + ", ".join(
                 f"{k} {v}" for k, v in sorted(e["launches"].items())))

@@ -9,8 +9,11 @@ Imports nothing of JAX, so it runs on a machine without it:
 Small scenes that reach the branches the config-3 and config-4 checks in
 ``chip_smoke.py`` do not: 2D, several x tiles (halo lanes), the Tait EOS,
 a cell capacity of 16 (the kernels' second rank width; two staging passes
-of the sweep kernels), particles inside both obstacles and through the
-walls, forced drops, every form and switch of the continuity step, 27
+of the density sweep), particles inside both obstacles and through the
+walls, forced drops, every form and switch of the continuity step, the
+force kernels' march (a box filled to its z walls over an odd number of
+planes, a tile of more queries than threads, ring planes packed past
+their capacity, whose overflows the kernels count), 27
 cells at full capacity above an empty 8-row block (occ_q 0; for the
 density sweep also at K = 16, in 2D and across two x tiles, and with
 bounds zeroed on purpose), the gather's edges (3, 4 and 5 channels, a
@@ -46,6 +49,12 @@ CASES = ["2d", "3d", "multi_tile", "3d_tait", "3d_k16"]
 # the force kernels' edge: 27 cells at full capacity K around one query
 # cell, in the y block above an empty one (occ_q 0 beside full cells)
 FORCE_EDGE = "full_stencil"
+# the force kernels' march (csrc/ring.cuh): a box filled to its z walls,
+# over an odd number of planes (the columns' last is cut short); one tile
+# of 372 queries; cells at full capacity over more than a ring plane
+# holds, in 3D, in 2D and at K = 16 (planes staged and walked in windows)
+RING_CASES = ["z_edges", "many_queries", "ring_overflow", "ring_overflow_2d",
+              "ring_overflow_k16"]
 
 
 @pytest.fixture
@@ -69,6 +78,56 @@ def _full_cells(params, xs, zs=(0,)):
     return params, ft.make_state(pos, np.zeros_like(pos), device="cpu")
 
 
+def _packed_cells(params, cells, per_cell, seed=4):
+    """``per_cell`` particles (numpy-seeded) in each of the grid cells
+    ``cells`` (an (n, dim) int array)."""
+    rng = np.random.default_rng(seed)
+    dim = params.dim
+    pos = (np.asarray(cells, np.float64)[:, None, :]
+           + rng.uniform(0.05, 0.95, (len(cells), per_cell, dim))) \
+        * np.asarray(params.cells_axis) + np.asarray(params.bounds_min)
+    pos = pos.reshape(-1, dim).astype(np.float32)
+    return params, ft.make_state(pos, np.zeros_like(pos), device="cpu")
+
+
+def _ring_scene(case):
+    """RING_CASES' scenes (see there)."""
+    dim = 2 if case == "ring_overflow_2d" else 3
+    params, _ = ft.scenes.dam_break(n=1200, dim=dim, device="cpu")
+    if case == "z_edges":
+        # 13 cells along z: 15 planes, an odd count
+        params = params.replace(bounds_max=(1.0, 1.0, 1.0 + params.cell))
+        state = ft.scenes.spawn_box(params, params.bounds_min,
+                                    params.bounds_max, jitter=0.3, seed=5,
+                                    device="cpu")
+        assert pm.geometry(params).pz == 15
+        return params, state
+    # 42 cells along x
+    params = params.replace(bounds_max=(3.5,) + params.bounds_max[1:])
+    if case == "many_queries":
+        # lanes 1..31 of x tile 0, the 4 rows of one tile, one z plane
+        cells = [(x, y, 3) for x in range(31) for y in range(4)]
+        return _packed_cells(params, cells, 3)
+    # 40 x 6 (x 5 in 3D) cells at capacity: a ring plane's 6 x 34 cells
+    # hold 8 or 16 ranks each
+    if case == "ring_overflow_k16":
+        params = params.replace(cell_capacity=16)
+    zs = range(1, 6) if dim == 3 else (0,)
+    cells = [(x, y, z)[:dim] for x in range(40) for y in range(6)
+             for z in zs]
+    return _packed_cells(params, cells, params.cell_capacity)
+
+
+def _ring_check(case, device, before):
+    """The force kernels' ring overflows since ``before``: some in the
+    packed cases, none elsewhere."""
+    overflows = sph.ring_overflows(device) - before
+    if case.startswith("ring_overflow"):
+        assert overflows > 0
+    else:
+        assert overflows == 0
+
+
 def _multi_tile_params():
     params, _ = ft.scenes.dam_break(n=900, dim=2, jitter=0.2, seed=5,
                                     device="cpu")
@@ -76,6 +135,8 @@ def _multi_tile_params():
 
 
 def _scene(case):
+    if case in RING_CASES:
+        return _ring_scene(case)
     if case == FORCE_EDGE:
         # cells x, z in 2..4 and y in 8..10 (y block 1) hold K particles
         # each; y block 0 (cells 0..7) holds none
@@ -104,7 +165,7 @@ def _rel(a, b):
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-9))
 
 
-@pytest.mark.parametrize("case", CASES + [FORCE_EDGE])
+@pytest.mark.parametrize("case", CASES + [FORCE_EDGE] + RING_CASES)
 def test_kernels_match_plain(cuda, case):
     params, state = _scene(case)
     geom = pm.geometry(params)
@@ -133,8 +194,10 @@ def test_kernels_match_plain(cuda, case):
     assert _rel(rho, rho_plain) <= 1e-5
     rho = pm.halo_x(rho)
 
+    ring = sph.ring_overflows(cuda)
     acc = sph.accel_planes(planes, rho, occ_q, occ_s, params, geom)
     assert _rel(acc, sph.accel_plain(planes, rho, params, geom)) <= 1e-4
+    _ring_check(case, cuda, ring)
 
     stack = torch.cat([acc, rho[None]]).contiguous()
     got = route.gather(stack, table.slot)
@@ -271,7 +334,7 @@ def _inc_scene(case, seed=5):
     (numpy-seeded velocities), so movers, wall hits and, in 3D, obstacle
     hits occur in one step; 3d_collide also seeds particles inside the box
     pillar and the sphere."""
-    if case in ("multi_tile", FORCE_EDGE):
+    if case in ("multi_tile", FORCE_EDGE) or case in RING_CASES:
         params, state = _scene(case)
     elif case == "2d":
         params, state = ft.scenes.dam_break(n=600, dim=2, jitter=0.3,
@@ -376,7 +439,7 @@ def _check_consolidate(new6, idp, flagp, movers8, m, rho, params, geom):
 EMPTY_WARP_CASES = ("2d", "multi_tile", FORCE_EDGE)
 
 
-@pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE])
+@pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE] + RING_CASES)
 def test_inc_kernels_match_plain(cuda, case):
     """force_step, compact, consolidate and consolidate_rho against their
     plain versions on the same inputs, and one launch of each wrapper a
@@ -390,9 +453,11 @@ def test_inc_kernels_match_plain(cuda, case):
     if case == "multi_tile":
         assert geom.n_bx > 1
     before = dict(_build.launches)
+    ring = sph.ring_overflows(cuda)
     new6, flagp = sph.accel_step(p6, rho, occ_q, occ_s, params, geom)
     new6_p, flag_p = sph.accel_step_plain(p6, rho, params, geom)
     _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom)
+    _ring_check(case, cuda, ring)
     assert int((flagp > 0.5).sum()) >= 0.01 * state.n
 
     m_cap = inc.mover_capacity(state.n)
@@ -587,7 +652,7 @@ def _carried_rho(rho, p6, geom, seed=3):
 
 
 @pytest.mark.parametrize("form", list(CONT_CASES))
-@pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE])
+@pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE] + RING_CASES)
 def test_force_step_cont_matches_plain(cuda, case, form):
     """force_step_cont against its plain version in every form and switch,
     in 2D and 3D (with particles inside both obstacles), over several x
@@ -598,10 +663,12 @@ def test_force_step_cont_matches_plain(cuda, case, form):
     geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
     rho = _carried_rho(rho, p6, geom)
     before = dict(_build.launches)
+    ring = sph.ring_overflows(cuda)
     new6, rho_new, flagp = sph.accel_step_cont(p6, rho, occ_q, occ_s,
                                                params, geom)
     torch.cuda.synchronize()
     launched = {k: _build.launches[k] - before[k] for k in before}
+    _ring_check(case, cuda, ring)
     new6_p, rho_p, flag_p = sph.accel_step_cont_plain(p6, rho, params, geom)
     _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom)
     valid = (p6[0] < pm.SENTINEL * 0.5) & \
