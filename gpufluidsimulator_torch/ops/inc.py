@@ -63,8 +63,8 @@ RESUM_EVERY = 64       # continuity tier, cont_form="rate": steps between
 # summation-density re-syncs of the carried plane (the reference's
 # inc.py:70); "sum" and "relax" re-anchor in the sweep and resum only at
 # age 0.  Read at call time, so it can be patched.
-STEP_COUNTERS = ("movers", "flagged", "drops_cell_capacity")   # a step's
-# tallies (utils/profiling)
+STEP_COUNTERS = ("movers", "flagged", "drops_cell_capacity",
+                 "seam_movers")   # a step's tallies (utils/profiling)
 
 
 def mover_capacity(n: int) -> int:
@@ -200,6 +200,30 @@ def compact(channels, flags: torch.Tensor, cap: int):
                   ctypes.c_int(cap), _build.ptr(scratch), ctypes.c_int(nb),
                   _build.ptr(counts))
     return vals, counts[1], counts[0]
+
+
+def seam_movers(movers, m, flagp: torch.Tensor, params: SimParams,
+                geom: PlaneGeom, x_origin=None) -> torch.Tensor:
+    """Of ``compact``'s first ``m`` mover rows, those whose arrival cell
+    lies in another x tile than the slot each left: a () int32 tensor, 0
+    on planes of one tile (nothing is read then).  ``compact`` keeps slot
+    order and a slot's flat index runs over (rank, z plane, x tile) blocks
+    of ``py * 128`` cells, so the flagged slots counted per block tell
+    each row's source tile: one read of ``flagp`` (its flags are 0 or 1
+    exactly, so a block's float32 sum is its count), then work per mover
+    row.  A sharded slab's leavers bin into its edge tile, the tile they
+    leave from, and are not counted.  For the profiling record only: the
+    step never calls it while no profiler session records."""
+    if geom.n_bx == 1:
+        return torch.zeros((), dtype=torch.int32, device=flagp.device)
+    per_block = torch.sum(flagp.reshape(-1, geom.py * LANES), dim=1) \
+        .to(torch.int64)
+    rows = torch.arange(movers.shape[1], device=movers.device)
+    src = torch.searchsorted(torch.cumsum(per_block, 0), rows,
+                             right=True) % geom.n_bx
+    cid = pm.cell_linear_parts(movers[:params.dim].T, params, geom, x_origin)
+    dst = (cid // (geom.py * LANES)) % geom.n_bx
+    return torch.sum((rows < m) & (src != dst)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +497,8 @@ def step_phases(state: IncState, params: SimParams, geom: PlaneGeom,
     # (flagp is 0 on every slot that is not interior)
     with profiling.span("inc.compact"):
         movers, m, staged_total = compact(channels, flagp, m_cap)
+        seam = seam_movers(movers, m, flagp, params, geom, x_origin) \
+            if profiling.recording() else None
     live = None
     mig_overflow = state.mig_overflow
     if exchange is not None:
@@ -485,7 +511,7 @@ def step_phases(state: IncState, params: SimParams, geom: PlaneGeom,
         *cons, dropped = consolidate(new6, state.idp, flagp, arr, geom,
                                      rho_new)
         overflow = state.overflow + (staged_total - m) + dropped
-        profiling.tally(STEP_COUNTERS, m, staged_total, dropped)
+        profiling.tally(STEP_COUNTERS, m, staged_total, dropped, seam)
     return IncState(fields6=cons[0], idp=cons[1], overflow=overflow,
                     mig_overflow=mig_overflow,
                     rhop=cons[2] if continuity else None,

@@ -28,7 +28,9 @@ rebuild ``pallas.binning``, ``pallas.density``, ``pallas.force``,
 ``flagged`` (slots it found flagged), ``drops_cell_capacity`` (a
 binning's and ``consolidate``'s drops), ``force_ring_overflows`` (the
 force kernels' staged planes past their ring's capacity,
-``sph.RING_OVERFLOWS``); ``drops_mover_capacity`` is ``flagged -
+``sph.RING_OVERFLOWS``), ``seam_movers`` (the movers whose arrival
+cell lies in another x tile than the slot they left, ``inc.seam_movers``;
+0 on planes of one tile); ``drops_mover_capacity`` is ``flagged -
 movers``.  A call also holds its steps (the count of its step
 spans) and its launches of each hand-written kernel
 (``_build.launches``).
@@ -283,8 +285,9 @@ def take_calls() -> List[dict]:
 
 def format_calls(entries: List[dict]) -> List[str]:
     """Lines of text for ``calls()``' entries: per call each span's count,
-    host ms and self ms, the movers a step, the drops by cause, the force
-    kernels' ring overflows and the launches by kernel."""
+    host ms and self ms, the movers a step (and those across an x tile
+    seam), the drops by cause, the force kernels' ring overflows and the
+    launches by kernel."""
     lines = []
     for i, e in enumerate(entries):
         lines.append(f"call {i}: {e['name']}, {e['steps']} steps")
@@ -294,7 +297,10 @@ def format_calls(entries: List[dict]) -> List[str]:
                          f"self {sp['self_s'] * 1e3:10.3f} ms")
         c = e["counters"]
         if "movers" in c and e["steps"]:
-            lines.append(f"  movers a step {c['movers'] / e['steps']:.1f}")
+            seam = (f" ({c['seam_movers'] / e['steps']:.1f} across an x "
+                    f"tile seam)" if "seam_movers" in c else "")
+            lines.append(f"  movers a step {c['movers'] / e['steps']:.1f}"
+                         + seam)
         drops = {k[len("drops_"):]: v for k, v in c.items()
                  if k.startswith("drops_")}
         if drops:
