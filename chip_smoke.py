@@ -162,8 +162,8 @@ REPS = 20
 # force and gather at config 3, the others on the evolved config-4 planes
 PREV_MS = {# the row tile of csrc/tile.cuh, before the z-marching column
            "force": 0.16429, "force_step": 0.70285,
-           "force_step_cont": 0.80146, "compact": 0.12058,
-           "density": 0.46470, "gather": 0.02869, "consolidate": 0.40340,
+           "force_step_cont": 0.80146, "density": 0.27466,
+           "compact": 0.12058, "gather": 0.02869, "consolidate": 0.40340,
            "consolidate_rho": 0.47705,
            # occ_rowmax: its device time (torch.profiler), 20 calls in a row
            "occ_rowmax": 0.01028,

@@ -39,8 +39,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fk_occ_rowmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P],
     "fk_place": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
-    "fk_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
-                   _F, _F, _P],
+    "fk_density": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _L, _F, _F, _P],
     "fk_force": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _I, _L, _F, _F, _F, _F, _I, _F, _F, _F, _F, _I, _P],
     "fk_gather": [_P, _P, _P, _I, _I, _L, _P],

@@ -47,7 +47,7 @@
 // evolved scene hold more than 256).
 //
 // This design: the z-marching column of csrc/ring.cuh.  A block of 256
-// threads marches FR_Z planes of one 4 x 32 tile; its ring holds the
+// threads marches FK_Z planes of one 4 x 32 tile; its ring holds the
 // neighbour planes z-1, z, z+1, each compacted to its valid slots and
 // staged once for every query of the column that reads it; a staged slot
 // holds two float4, (x, y, z, pterm) and (vx, vy, vz, ir), with the EOS
@@ -56,10 +56,10 @@
 // each walks its 3 x 3 cells one range of slots a row, with 4
 // accumulators (5 with the continuity sum) and its query's 8 values.  The
 // constants are measured (H100 80GB HBM3 at 700 W, force_step on the
-// evolved double dam break, against each other in one process): FR_Z = 2
+// evolved double dam break, against each other in one process): FK_Z = 2
 // (1: +6%, 3: +1%, 4: +4%, 8: +11%; the fewer planes a column, the more
 // columns share the card and the shorter its last wave), registers capped
-// at 80 for 3 blocks an SM (capped at 64 for 4, they spill: +5%), FR_CAP =
+// at 80 for 3 blocks an SM (capped at 64 for 4, they spill: +5%), FK_CAP =
 // 576 slots a plane (640: +4%, a ring that leaves the loads less L1; at
 // 576, 22 of the scene's planes a launch take windows), cell-major queries
 // (rank-major: +4%) and a pair loop unrolled twice (not unrolled: +4%;
@@ -67,6 +67,8 @@
 #include "ring.cuh"
 
 #define FK_MAX_OBS 4
+#define FK_Z 2                  // z planes a block marches
+#define FK_CAP 576              // slots a ring plane holds: 2.8 a cell
 #define FK_MIN_BLOCKS 3         // blocks an SM: caps registers at 80
 
 struct FkEos {
@@ -283,9 +285,9 @@ __device__ __forceinline__ void fk_fill(float* out, float* flag,
     }
 }
 
-// One block per column of FR_Z planes of a tile of FK_TILE_ROWS rows x 32
+// One block per column of FK_Z planes of a tile of FK_TILE_ROWS rows x 32
 // lanes (see the note at the top and csrc/ring.cuh).  Dynamic shared
-// memory: 2 * FR_CAP float4 a ring plane, the staged (x, y, z, pterm) and
+// memory: 2 * FK_CAP float4 a ring plane, the staged (x, y, z, pterm) and
 // (vx, vy, vz, ir) of its compacted slots; FR_RING planes in 3D, one in
 // 2D.  ring_ovf: the count of ring planes that overflowed.
 template <int KMAX, int DIM, bool FUSE, int CONT>
@@ -295,7 +297,7 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
              float* __restrict__ flag_out, float* __restrict__ rho_out,
              int* __restrict__ ring_ovf, FkGeom g, float h, FkEos e,
              FkStep st, FkCont ct) {
-    constexpr int CAP = FR_CAP;
+    constexpr int CAP = FK_CAP;
     extern __shared__ float4 fk_stage[];
     float4* s_a = fk_stage;
     float4* s_b = fk_stage + (DIM == 3 ? FR_RING : 1) * CAP;
@@ -324,14 +326,14 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
         s_b[i] = make_float4(vxv, vyv, vzv, cir);
     };
 
-    const FrColumn col = fr_column(g);
+    const FrColumn col = fr_column<FK_Z>(g);
     // the ring holds the planes lo .. hi (none while hi < lo), plane p in
     // ring slot p % FR_RING (block-uniform)
     int lo = 0, hi = -1;
     for (int z = col.z0; z < col.z1; ++z) {
         __syncthreads();          // the last plane's readers are done
         const FkTile t = fr_tile<DIM>(g, occ, col, z);
-        const int nq = fk_tile_queries<KMAX, true, DIM>(X, g, t, occ, sq);
+        const int nq = fk_tile_queries<KMAX, DIM>(X, g, t, occ, sq);
         fk_tile_fill<KMAX>(g, t, sq, [&](long long s) {
             fk_fill<FUSE, CONT>(acc_out, flag_out, rho_out, s, ch);
         });
@@ -478,7 +480,7 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
 // plane
 template <int DIM>
 constexpr int fk_stage_bytes() {
-    return 2 * (DIM == 3 ? FR_RING : 1) * FR_CAP * (int)sizeof(float4);
+    return 2 * (DIM == 3 ? FR_RING : 1) * FK_CAP * (int)sizeof(float4);
 }
 
 template <int KMAX, int DIM, bool FUSE, int CONT>
@@ -494,12 +496,12 @@ static int launch_force(const float* fields, const float* rho,
                                    bytes);
     if (err != cudaSuccess) return (int)err;
     force_kernel<KMAX, DIM, FUSE, CONT>
-        <<<(unsigned)fr_blocks(g), FK_THREADS, bytes, st>>>(
+        <<<(unsigned)fr_blocks<FK_Z>(g), FK_THREADS, bytes, st>>>(
             fields, rho, occ, out, flag, rho_out, ring_ovf, g, h, e, s, ct);
     return (int)cudaGetLastError();
 }
 
-// One block per column of FR_Z planes of a tile of FK_TILE_ROWS rows x 32
+// One block per column of FK_Z planes of a tile of FK_TILE_ROWS rows x 32
 // lanes: the rows of a (z, x tile) plane (py of them, a multiple of 8) lie
 // in whole tiles
 template <bool FUSE, int CONT>

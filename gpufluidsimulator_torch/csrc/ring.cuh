@@ -1,16 +1,17 @@
-// The z-marching column of the force kernel (csrc/force.cu, all three
-// modes): a ring of compacted staged planes.
+// The z-marching column of the rank-plane sweeps (csrc/force.cu, all three
+// modes; csrc/density.cu): a ring of compacted staged planes.
 //
 // A block of FK_THREADS threads owns the tile of FK_TILE_ROWS rows x 32
-// lanes of csrc/tile.cuh in each of FR_Z consecutive z planes of one x
-// tile, and walks them upwards.  At each plane it lays out the tile's
-// queries and fills the empty slots as the row tile does (fk_tile_queries,
-// fk_tile_fill); a plane with queries then needs its neighbour planes z-1,
-// z, z+1 staged, each as the 6 rows x 34 lanes around the tile.  The ring
-// holds FR_RING staged planes (plane p in ring slot p % 3), so a march
-// through planes that hold queries stages one new plane a step and drops
-// the oldest: each staged slot serves every query of the column that
-// reads it, over all of its query rounds.
+// lanes of csrc/tile.cuh in each of ZN consecutive z planes of one x tile
+// (ZN a kernel's own constant), and walks them upwards.  At each plane it
+// finds the tile's queries (the force kernels lay them out and fill the
+// empty slots with fk_tile_queries and fk_tile_fill; the density sweep
+// takes them from the staged plane z); a plane with queries then needs its
+// neighbour planes z-1, z, z+1 staged, each as the 6 rows x 34 lanes
+// around the tile.  The ring holds FR_RING staged planes (plane p in ring
+// slot p % 3), so a march through planes that hold queries stages one new
+// plane a step and drops the oldest: each staged slot serves every query
+// of the column that reads it, over all of its query rounds.
 //
 // A ring plane is compacted: only the valid ranks of each cell, cell by
 // cell in row-major order, ranks in order.  Its staging (fr_count) first
@@ -19,19 +20,19 @@
 // rank), and scans the counts into offsets (off[cell], off[cells] the
 // plane's total); then one thread per valid slot finds its cell by binary
 // search in the offsets and stages it (fr_stage).  The three cells of a
-// query's row are neighbours in the layout, so a query walks one range of
-// slots a row (fr_pairs), in the order dx, rank.  A plane holds at most
-// FR_CAP slots: a plane with more is staged, and walked, in
-// windows of that many slots, one window at a time between two barriers,
-// each time it is read (the same pair order, only slower); a block counts
-// each such plane once in its overflow counter.
+// query's row are neighbours in the layout, so a force query walks one
+// range of slots a row (fr_pairs), in the order dx, rank (the density
+// sweep walks them rank by rank, its own order).  A ring plane holds at
+// most a kernel's own capacity of slots: a plane with more is staged, and
+// walked, in windows of that many slots, one window at a time between two
+// barriers, each time it is read (the same pair order, only slower), or
+// read from memory (density); a block counts each such plane once in its
+// kernel's overflow counter.
 #pragma once
 
 #include "tile.cuh"
 
-#define FR_Z 2                  // z planes a block marches
 #define FR_RING 3               // staged planes a block holds: z-1, z, z+1
-#define FR_CAP 576              // slots a ring plane holds: 2.8 a cell
 #define FR_SCAN_WARPS ((FK_STAGE_CELLS + 31) / 32)
 static_assert(FR_SCAN_WARPS <= FK_THREADS / 32,
               "a thread counts each staged cell");
@@ -49,11 +50,14 @@ struct FrColumn {
     int lane0, y0, xo, z0, z1;
 };
 
+// Blocks of a launch whose columns march ZN planes each
+template <int ZN>
 __host__ __device__ inline long long fr_blocks(const FkGeom& g) {
-    return (long long)((g.pz + FR_Z - 1) / FR_Z) * g.n_bx
+    return (long long)((g.pz + ZN - 1) / ZN) * g.n_bx
         * (g.py / FK_TILE_ROWS) * FK_TILES_PER_ROW;
 }
 
+template <int ZN>
 __device__ __forceinline__ FrColumn fr_column(const FkGeom& g) {
     FrColumn c;
     long long b = blockIdx.x;
@@ -63,13 +67,12 @@ __device__ __forceinline__ FrColumn fr_column(const FkGeom& g) {
     c.y0 = (int)(b % tiles_y) * FK_TILE_ROWS;
     b /= tiles_y;
     c.xo = (int)(b % g.n_bx);
-    c.z0 = (int)(b / g.n_bx) * FR_Z;
-    c.z1 = min(c.z0 + FR_Z, g.pz);
+    c.z0 = (int)(b / g.n_bx) * ZN;
+    c.z1 = min(c.z0 + ZN, g.pz);
     return c;
 }
 
-// The column's tile in plane z, as fk_tile gives it for a block of the row
-// tile
+// The column's tile in plane z
 template <int DIM>
 __device__ __forceinline__ FkTile fr_tile(const FkGeom& g, const FkOcc& occ,
                                           const FrColumn& c, int z) {

@@ -1,34 +1,23 @@
-// The row tile of the rank-plane sweeps: csrc/density.cu (kernel 3) runs
-// on it whole; csrc/force.cu (kernel 4, all three modes) marches it up a
-// column of z planes (csrc/ring.cuh) and takes from here the bounds
-// (FkOcc), the tile (FkTile), its query layout and its fill.
+// The row tile of the rank-plane sweeps: csrc/force.cu (kernel 4, all
+// three modes) and csrc/density.cu (kernel 3) march it up a column of z
+// planes (csrc/ring.cuh) and take from here the bounds (FkOcc) and the
+// tile (FkTile); the force kernels also its query layout and its fill.
 //
-// A block of FK_THREADS threads owns a tile of FK_TILE_ROWS rows x 32 lanes
-// of one (z, x tile) plane, inside one 8-row block.  Warp w counts the
-// valid ranks of row w's lanes (bounded by the block's occ_q, stopping at
-// the first sentinel) and lays that row's queries out, one a thread
-// (fk_tile_queries): rank-major with ballots (threads take neighbouring
-// lanes of one rank) or cell-major with a lane scan (threads of one cell
-// share its neighbours; both sweeps lay them out so); meanwhile one more
-// warp loads the tile's occ_s for the sweep.  Every slot that holds no
+// A tile is FK_TILE_ROWS rows x 32 lanes of one (z, x tile) plane, inside
+// one 8-row block; a block of FK_THREADS threads serves it.  Warp w counts
+// the valid ranks of row w's lanes (bounded by the block's occ_q, stopping
+// at the first sentinel) and lays that row's queries out, one a thread,
+// cell-major with a lane scan, so threads of one cell share its neighbours
+// (fk_tile_queries); meanwhile one more warp loads the tile's occ_s for
+// the sweep.  Every slot that holds no
 // query is written by one coalesced sweep (fk_tile_fill).  A tile whose
 // occ_q is 0, or that holds no interior row, has no query, so it only
-// fills and stages nothing.  The density sweep stages its candidates into
-// shared memory one dz plane at a time (fk_tile_sweep): a plane whose
-// occ_s is 0 is skipped, the others' 6 rows x 34 lanes around the tile are
-// staged one thread per slot with every load in flight at once, ranks
-// below occ_s, FK_STAGE_RANKS a pass (K = 16 takes two), rank-major so a
-// warp reads neighbouring cells without bank conflicts; a cell's count
-// falls to its first sentinel rank.  Each thread then takes one query
-// (FK_THREADS at a time) and walks its 3 x 3 staged cells of each plane.
-// What a slot stages, what a pair adds and what a fill writes are the
-// kernels' own (functors).
+// fills.  What a fill writes is the kernels' own (a functor).
 #pragma once
 
 #include "common.cuh"
 
 #define FK_THREADS 256          // threads a block; queries 256 at a time
-#define FK_STAGE_RANKS 8        // ranks of a staged cell a pass holds
 #define FK_TILE_ROWS 4          // rows of a block's tile (divides 8 and py)
 #define FK_TILE_LANES 32        // lanes of each row that a block owns
 #define FK_TILES_PER_ROW (FK_LANES / FK_TILE_LANES)
@@ -38,12 +27,6 @@ static_assert(FK_THREADS % 32 == 0 && FK_THREADS / 32 > FK_TILE_ROWS,
               "a warp counts each row of the tile, one more loads occ_s");
 static_assert(FK_ROWS_PER_BLOCK % FK_TILE_ROWS == 0,
               "a tile lies in one 8-row block");
-
-// ranks of a staged cell a pass holds at cell capacity KMAX
-template <int KMAX>
-__host__ __device__ constexpr int fk_stage_ranks() {
-    return KMAX < FK_STAGE_RANKS ? KMAX : FK_STAGE_RANKS;
-}
 
 // The occupancy bounds of sph.accel_planes / sph.density_planes, read
 // through their strides (in elements): occ_q (nz|1, n_bx, n_by) bounds a
@@ -64,8 +47,8 @@ static inline FkOcc fk_occ_from(const int* occ_q, const int* occ_s,
                  ostr[3], ostr[4], ostr[5], ostr[6]};
 }
 
-// A block's tile: rows row0 .. row0 + FK_TILE_ROWS - 1 (y0 ..), lanes
-// lane0 .. lane0 + 31, and its bounds: oq (0 outside the interior) and os,
+// A tile: rows row0 .. row0 + FK_TILE_ROWS - 1 (y0 ..), lanes lane0 ..
+// lane0 + 31, and its bounds: oq (0 outside the interior) and os,
 // its occ_s entry (plane dz + 1 at os[(dz + 1) * occ.s3])
 struct FkTile {
     long long row0, base;       // first row, first cell
@@ -73,30 +56,6 @@ struct FkTile {
     int oq;
     const int* os;
 };
-
-template <int DIM>
-__device__ __forceinline__ FkTile fk_tile(const FkGeom& g, const FkOcc& occ) {
-    FkTile t;
-    t.row0 = (long long)(blockIdx.x / FK_TILES_PER_ROW) * FK_TILE_ROWS;
-    t.lane0 = (int)(blockIdx.x % FK_TILES_PER_ROW) * FK_TILE_LANES;
-    t.base = t.row0 * FK_LANES + t.lane0;
-    t.y0 = (int)(t.row0 % g.py);
-    const long long zx = t.row0 / g.py;
-    t.xo = (int)(zx % g.n_bx);
-    t.z = (int)(zx / g.n_bx);
-    const bool plane_in = DIM == 3 ? (t.z >= 1 && t.z <= g.nz) : t.z == 0;
-    const bool tile_in = plane_in && t.y0 >= FK_ROWS_PER_BLOCK
-        && t.y0 < FK_ROWS_PER_BLOCK + g.ny;
-    t.oq = 0;                                        // block-uniform
-    t.os = occ.s;
-    if (tile_in) {
-        const int b = (t.y0 - FK_ROWS_PER_BLOCK) / FK_ROWS_PER_BLOCK;
-        const int zq = DIM == 3 ? t.z - 1 : 0;
-        t.oq = min(occ.q[zq * occ.q0 + t.xo * occ.q1 + b * occ.q2], g.k);
-        t.os = occ.s + zq * occ.s0 + t.xo * occ.s1 + b * occ.s2;
-    }
-    return t;
-}
 
 // The query layout of a tile, in shared memory
 template <int KMAX>
@@ -110,12 +69,11 @@ struct FkQueries {
 };
 
 // Warp w < FK_TILE_ROWS: each lane's valid ranks in row w, and the row's
-// queries, rank-major (CELL_MAJOR false: rank 0 of every lane, then rank
-// 1, ...; neighbouring threads take neighbouring lanes) or cell-major
-// (true: a cell's ranks next to each other, so threads that share a cell
-// share its neighbours).  Warp FK_TILE_ROWS loads the tile's three occ_s
-// meanwhile.  Returns the tile's query count (after a barrier).
-template <int KMAX, bool CELL_MAJOR, int DIM>
+// queries, cell-major: a cell's ranks next to each other, so threads that
+// share a cell share its neighbours.  Warp FK_TILE_ROWS loads the tile's
+// three occ_s meanwhile.  Returns the tile's query count (after a
+// barrier).
+template <int KMAX, int DIM>
 __device__ __forceinline__ int fk_tile_queries(const float* __restrict__ X,
                                                const FkGeom& g,
                                                const FkTile& t,
@@ -148,29 +106,15 @@ __device__ __forceinline__ int fk_tile_queries(const float* __restrict__ X,
             }
         }
         sq.n[w][lt] = n;
-        if constexpr (CELL_MAJOR) {
-            int incl = n;                 // inclusive scan over the lanes
+        int incl = n;                     // inclusive scan over the lanes
 #pragma unroll
-            for (int o = 1; o < FK_TILE_LANES; o <<= 1) {
-                const int v = __shfl_up_sync(0xffffffffu, incl, o);
-                if (lt >= o) incl += v;
-            }
-            for (int r = 0; r < n; ++r)
-                sq.q[w][incl - n + r] = (unsigned short)((r << 5) | lt);
-            if (lt == FK_TILE_LANES - 1) sq.nrow[w] = (unsigned short)incl;
-        } else {
-            const unsigned below = (1u << lt) - 1u;
-            int nq = 0;
-            for (int r = 0; r < t.oq; ++r) {
-                const unsigned mask = __ballot_sync(0xffffffffu, n > r);
-                if (mask == 0u) break;
-                if (n > r)
-                    sq.q[w][nq + __popc(mask & below)] =
-                        (unsigned short)((r << 5) | lt);
-                nq += __popc(mask);
-            }
-            if (lt == 0) sq.nrow[w] = (unsigned short)nq;
+        for (int o = 1; o < FK_TILE_LANES; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lt >= o) incl += v;
         }
+        for (int r = 0; r < n; ++r)
+            sq.q[w][incl - n + r] = (unsigned short)((r << 5) | lt);
+        if (lt == FK_TILE_LANES - 1) sq.nrow[w] = (unsigned short)incl;
     }
     __syncthreads();
     int nq = 0;
@@ -211,49 +155,4 @@ __device__ __forceinline__ FkQuery fk_tile_query(const FkQueries<KMAX>& sq,
     q.l = code & (FK_TILE_LANES - 1);
     q.s = (code >> 5) * cells + t.base + q.qr * FK_LANES + q.l;
     return q;
-}
-
-// The staged neighbour planes of a tile, one dz plane at a time, each
-// bounded by kz (FkQueries::kz): a plane bounded by 0 is not staged, the
-// others go in passes of SR ranks, between two barriers: stage(i, slot)
-// for each slot to stage, i = r * FK_STAGE_CELLS + cell for rank r0 + r,
-// loads it and returns false at a sentinel x, and the cell's count
-// cnt[cell] (the plane's occ_s at the first pass) falls to that rank;
-// then pairs(r0, rn) with rn the pass's ranks.  Block-uniform: every
-// thread calls it.  cnt holds FK_STAGE_CELLS ints.
-template <int DIM, int SR, class Stage, class Pairs>
-__device__ __forceinline__ void fk_tile_sweep(const FkTile& t, const FkGeom& g,
-                                              const unsigned short* kzs,
-                                              int* cnt, Stage stage,
-                                              Pairs pairs) {
-    const int tid = threadIdx.x;
-    const long long zs = (long long)g.n_bx * g.py;   // rows per z plane
-    for (int dz = (DIM == 3 ? -1 : 0); dz <= (DIM == 3 ? 1 : 0); ++dz) {
-        const int kz = kzs[dz + 1];                  // 0: block-uniform skip
-        for (int r0 = 0; r0 < kz; r0 += SR) {
-            const int rn = min(SR, kz - r0);
-            __syncthreads();      // the last pass's readers are done
-            if (r0 == 0) {
-                for (int i = tid; i < FK_STAGE_CELLS; i += FK_THREADS)
-                    cnt[i] = kz;
-                __syncthreads();
-            }
-            // one thread per staged slot: every load in flight at once
-            for (int i = tid; i < rn * FK_STAGE_CELLS; i += FK_THREADS) {
-                const int r = i / FK_STAGE_CELLS;
-                const int ci = i - r * FK_STAGE_CELLS;
-                const int sl = t.lane0 - 1 + ci % FK_STAGE_LANES;
-                if (sl < 0 || sl >= FK_LANES) {
-                    cnt[ci] = 0;
-                    continue;
-                }
-                const long long s = (r0 + r) * g.cells
-                    + (t.row0 + dz * zs + ci / FK_STAGE_LANES - 1) * FK_LANES
-                    + sl;
-                if (!stage(i, s)) atomicMin(&cnt[ci], r0 + r);
-            }
-            __syncthreads();
-            pairs(r0, rn);
-        }
-    }
 }

@@ -31,10 +31,13 @@ from .planes import LANES, PlaneGeom
 # The CUDA sweeps take up to this many ranks a cell (csrc/tile.cuh lays
 # out up to 16 query ranks a cell)
 MAX_KERNEL_K = 16
-# the record's counter of the force kernels' ring planes that overflowed
-# (csrc/ring.cuh: planes staged and walked in windows); 0 on the CPU
+# the record's counters of the ring planes that overflowed (csrc/ring.cuh:
+# the force kernels stage and walk them in windows, the density sweep reads
+# them from memory), the force kernels' and the density sweep's apart; 0 on
+# the CPU
 RING_OVERFLOWS = "force_ring_overflows"
-_ring_counters = {}    # device -> its force kernels' running count
+DENSITY_RING_OVERFLOWS = "density_ring_overflows"
+_ring_counters = {}    # (counter, device) -> its kernels' running count
 
 
 def _offsets(dim: int):
@@ -83,33 +86,38 @@ def _occ_args(occ_q, occ_s):
             ctypes.cast(strides, ctypes.c_void_p)]
 
 
-def _ring_counter(device: torch.device) -> torch.Tensor:
-    """The int32 counter a force kernel adds its ring-plane overflows to:
-    a fresh one inside a recorded call (``_tally_ring`` adds it to the
-    call's record), else the device's running count (``ring_overflows``).
-    The kernels touch it only on an overflow."""
+def _ring_counter(device: torch.device,
+                  name: str = RING_OVERFLOWS) -> torch.Tensor:
+    """The int32 counter a sweep kernel adds its ring-plane overflows to
+    (``name``: the force kernels' or the density sweep's): a fresh one
+    inside a recorded call (``_tally_ring`` adds it to the call's record),
+    else the device's running count (``ring_overflows``).  The kernels
+    touch it only on an overflow."""
     if profiling.recording():
         return torch.zeros(1, dtype=torch.int32, device=device)
-    if device not in _ring_counters:
-        _ring_counters[device] = torch.zeros(1, dtype=torch.int32,
-                                             device=device)
-    return _ring_counters[device]
+    key = (name, device)
+    if key not in _ring_counters:
+        _ring_counters[key] = torch.zeros(1, dtype=torch.int32,
+                                          device=device)
+    return _ring_counters[key]
 
 
-def _tally_ring(counter: torch.Tensor) -> None:
-    """Add a force launch's counter to the recorded call (after the launch:
-    the tally copies it)."""
-    profiling.tally((RING_OVERFLOWS,), counter[0])
+def _tally_ring(counter: torch.Tensor, name: str = RING_OVERFLOWS) -> None:
+    """Add a launch's counter to the recorded call's ``name`` (after the
+    launch: the tally copies it)."""
+    profiling.tally((name,), counter[0])
 
 
-def ring_overflows(device) -> int:
-    """The force kernels' ring planes on ``device`` that overflowed and were
-    staged in windows, in launches made while no profiler session
-    recorded (a recorded call counts its own, ``RING_OVERFLOWS``)."""
+def ring_overflows(device, name: str = RING_OVERFLOWS) -> int:
+    """The ring planes on ``device`` that overflowed (more valid slots
+    than a ring plane holds), in launches made while no profiler session
+    recorded (a recorded call counts its own): the force kernels'
+    (``RING_OVERFLOWS``) or the density sweep's
+    (``DENSITY_RING_OVERFLOWS``)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    counter = _ring_counters.get(device)
+    counter = _ring_counters.get((name, device))
     return 0 if counter is None else int(counter[0])
 
 
@@ -152,8 +160,12 @@ def density_planes(pos_planes: torch.Tensor, occ_q: torch.Tensor,
     card, the plain version for CPU tensors.  ``occ_q``/``occ_s`` are the
     reference's rank-loop bounds (``planes.occupancy_bounds`` of the same
     planes): the kernel skips an 8-row block whose ``occ_q`` is 0 and
-    bounds its rank loops by them, as the force kernels do."""
+    bounds the ranks of each plane it stages, its queries' plane included,
+    by ``occ_s``.  Its ring planes that overflowed count as
+    ``DENSITY_RING_OVERFLOWS``."""
+    ring = _ring_counter(pos_planes.device, DENSITY_RING_OVERFLOWS)
     if pos_planes.device.type == "cpu":
+        _tally_ring(ring, DENSITY_RING_OVERFLOWS)
         return density_plain(pos_planes, params, geom)
     shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
     _build.check_tensor(pos_planes, "pos_planes", torch.float32,
@@ -163,9 +175,10 @@ def density_planes(pos_planes: torch.Tensor, occ_q: torch.Tensor,
     c_poly6 = kernels.poly6_coef(params.h, params.dim) * params.particle_mass
     _build.launch("density", pos_planes,
                   _build.ptr(pos_planes), *_occ_args(occ_q, occ_s),
-                  _build.ptr(rho), *_geom_args(geom),
+                  _build.ptr(rho), _build.ptr(ring), *_geom_args(geom),
                   ctypes.c_float(params.h * params.h),
                   ctypes.c_float(c_poly6))
+    _tally_ring(ring, DENSITY_RING_OVERFLOWS)
     return rho
 
 

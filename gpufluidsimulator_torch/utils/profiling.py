@@ -26,9 +26,10 @@ rebuild ``pallas.binning``, ``pallas.density``, ``pallas.force``,
 ``pallas.gather``; ``sharded.exchange``; ``render.splat``,
 ``render.tonemap``.  Counters: ``movers`` (rows ``compact`` keeps),
 ``flagged`` (slots it found flagged), ``drops_cell_capacity`` (a
-binning's and ``consolidate``'s drops), ``force_ring_overflows`` (the
-force kernels' staged planes past their ring's capacity,
-``sph.RING_OVERFLOWS``), ``seam_movers`` (the movers whose arrival
+binning's and ``consolidate``'s drops), ``force_ring_overflows`` and
+``density_ring_overflows`` (the force kernels' and the density sweep's
+staged planes past their ring's capacity, ``sph.RING_OVERFLOWS`` and
+``sph.DENSITY_RING_OVERFLOWS``), ``seam_movers`` (the movers whose arrival
 cell lies in another x tile than the slot they left, ``inc.seam_movers``;
 0 on planes of one tile); ``drops_mover_capacity`` is ``flagged -
 movers``.  A call also holds its steps (the count of its step
@@ -286,8 +287,8 @@ def take_calls() -> List[dict]:
 def format_calls(entries: List[dict]) -> List[str]:
     """Lines of text for ``calls()``' entries: per call each span's count,
     host ms and self ms, the movers a step (and those across an x tile
-    seam), the drops by cause, the force kernels' ring overflows and the
-    launches by kernel."""
+    seam), the drops by cause, the force kernels' and the density sweep's
+    ring overflows and the launches by kernel."""
     lines = []
     for i, e in enumerate(entries):
         lines.append(f"call {i}: {e['name']}, {e['steps']} steps")
@@ -307,9 +308,10 @@ def format_calls(entries: List[dict]) -> List[str]:
             lines.append("  drops: " + ", ".join(
                 f"{k.replace('_', ' ')} {v}"
                 for k, v in sorted(drops.items())))
-        if "force_ring_overflows" in c:
-            lines.append(f"  force ring overflows "
-                         f"{c['force_ring_overflows']}")
+        for sweep in ("force", "density"):
+            if f"{sweep}_ring_overflows" in c:
+                lines.append(f"  {sweep} ring overflows "
+                             f"{c[f'{sweep}_ring_overflows']}")
         if e["launches"]:
             lines.append("  launches: " + ", ".join(
                 f"{k} {v}" for k, v in sorted(e["launches"].items())))

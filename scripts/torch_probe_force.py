@@ -151,9 +151,9 @@ def main() -> int:
     ap.add_argument("--warm", type=int, default=2000)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--z", type=int, default=2,
-                    help="planes a column marches (csrc/ring.cuh FR_Z)")
+                    help="planes a column marches (csrc/force.cu FK_Z)")
     ap.add_argument("--cap", type=int, default=576,
-                    help="slots a ring plane holds (csrc/ring.cuh FR_CAP)")
+                    help="slots a ring plane holds (csrc/force.cu FK_CAP)")
     args = ap.parse_args()
 
     import torch

@@ -8,12 +8,12 @@ Imports nothing of JAX, so it runs on a machine without it:
 
 Small scenes that reach the branches the config-3 and config-4 checks in
 ``chip_smoke.py`` do not: 2D, several x tiles (halo lanes), the Tait EOS,
-a cell capacity of 16 (the kernels' second rank width; two staging passes
-of the density sweep), particles inside both obstacles and through the
+a cell capacity of 16 (the kernels' second rank width), particles inside both obstacles and through the
 walls, forced drops, every form and switch of the continuity step, the
-force kernels' march (a box filled to its z walls over an odd number of
-planes, a tile of more queries than threads, ring planes packed past
-their capacity, whose overflows the kernels count), 27
+force kernels' and the density sweep's march (a box filled to its z
+walls over an odd number of planes, a tile of more queries than threads,
+ring planes packed past their capacity, whose overflows the kernels
+count; for the density sweep also planes two x tiles wide in 3D), 27
 cells at full capacity above an empty 8-row block (occ_q 0; for the
 density sweep also at K = 16, in 2D and across two x tiles, and with
 bounds zeroed on purpose), the gather's edges (3, 4 and 5 channels, a
@@ -286,6 +286,58 @@ def test_density_edges_match_plain(cuda, case):
                    (occ_q, torch.zeros_like(occ_s))):
         got = sph.density_planes(pos_planes, zq, zs, params, geom)
         assert not got.any()
+
+
+# the density sweep's march (csrc/ring.cuh): planes two x tiles wide in 3D
+# (a box across x cell 126), 2D, K = 16, and RING_CASES' packed cells,
+# whose ring planes hold more valid slots than the density sweep's ring
+DENSITY_RING_CASES = ["tiles_3d", "2d", "3d_k16", "ring_overflow",
+                      "ring_overflow_2d", "ring_overflow_k16"]
+
+
+def _density_ring_scene(case):
+    if case != "tiles_3d":
+        return _scene(case)
+    params, _ = ft.scenes.dam_break(n=1200, dim=3, device="cpu")
+    params = params.replace(bounds_max=(130 * params.cell,)
+                            + params.bounds_max[1:])
+    bx = 126 * params.cell
+    state = ft.scenes.spawn_box(params, [bx - 0.3, 0.0, 0.0],
+                                [bx + 0.3, 0.4, 1.0], jitter=0.3, seed=5,
+                                device="cpu")
+    assert pm.geometry(params).n_bx == 2
+    return params, state
+
+
+@pytest.mark.parametrize("case", DENSITY_RING_CASES)
+def test_density_ring_matches_plain(cuda, case):
+    """The density sweep's z-marching column against its plain version
+    (relative 1e-5; the same zero slots), one launch: across two x tiles,
+    in 2D, at K = 16, and where ring planes overflow.  There the planes'
+    candidates are read from memory, in the walk's own order, and counted
+    in the density sweep's own counter (the force kernels' does not move),
+    and the sums still equal the plain version's, which stages no ring."""
+    params, state = _density_ring_scene(case)
+    geom = pm.geometry(params)
+    table = pm.build_planes(*(t.to(cuda) for t in
+                              (state.pos, state.vel, state.ids)),
+                            params, geom)
+    assert bool(table.ok.all())
+    pos_planes = table.planes[:pm.N_POS_FIELDS]
+    occ_q, occ_s = pm.occupancy_bounds(table.planes, params, geom)
+    force_ring = sph.ring_overflows(cuda)
+    ring = sph.ring_overflows(cuda, sph.DENSITY_RING_OVERFLOWS)
+    before = dict(_build.launches)
+    rho = sph.density_planes(pos_planes, occ_q, occ_s, params, geom)
+    torch.cuda.synchronize()
+    launched = {k: _build.launches[k] - before[k] for k in before}
+    overflows = sph.ring_overflows(cuda, sph.DENSITY_RING_OVERFLOWS) - ring
+    want = sph.density_plain(pos_planes, params, geom)
+    assert _rel(rho, want) <= 1e-5
+    assert torch.equal(rho == 0, want == 0)
+    assert launched == {k: int(k == "density") for k in before}
+    assert (overflows > 0) == case.startswith("ring_overflow")
+    assert sph.ring_overflows(cuda) == force_ring
 
 
 @pytest.mark.parametrize("channels", [3, 4, 5])

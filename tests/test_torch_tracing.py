@@ -1,7 +1,7 @@
 """The port's spans and counters (``utils/profiling``): nothing without a
 profiler session; under one, one call a ``solver.run``, its step and phase
 spans, their host and self times, the movers, the drops by cause and the
-force kernels' ring overflows, and the spans as nested ``user_annotation``
+force kernels' and the density sweep's ring overflows, and the spans as nested ``user_annotation``
 events of the profiler's trace.
 
 On the CPU but for the tests marked ``cuda``, which skip without a card.
@@ -229,22 +229,27 @@ def test_pallas_and_render_spans():
     for name in ("pallas.step",) + PALLAS_PHASES:
         assert run["spans"][name]["count"] == 3, name
     assert run["counters"] == {"drops_cell_capacity": 0,
-                               sph.RING_OVERFLOWS: 0}
+                               sph.RING_OVERFLOWS: 0,
+                               sph.DENSITY_RING_OVERFLOWS: 0}
     assert splat["name"] == "render.splat" and splat["steps"] == 0
     assert tone["name"] == "render.tonemap"
     assert set(tone["spans"]) == {"render.tonemap"}
 
 
+@pytest.mark.parametrize("counter,line", [
+    (sph.RING_OVERFLOWS, "  force ring overflows 0"),
+    (sph.DENSITY_RING_OVERFLOWS, "  density ring overflows 0")])
 @pytest.mark.parametrize("method", ["pallas_inc", "pallas_inc_cont"])
-def test_force_ring_overflows_read_zero_on_the_cpu(method):
-    """The force kernels' ring overflows are in the record of a call of
-    the plain versions, as 0: they stage no ring."""
+def test_force_ring_overflows_read_zero_on_the_cpu(method, counter, line):
+    """The force kernels' and the density sweep's ring overflows are in
+    the record of a call of the plain versions, as 0: they stage no
+    ring."""
     params, state = _scene(cell_capacity=8)
     _traced(lambda: solver.run(state, params, STEPS, method=method,
                                device="cpu"))
     (c,) = profiling.take_calls()
-    assert c["counters"][sph.RING_OVERFLOWS] == 0
-    assert "  force ring overflows 0" in profiling.format_calls([c])
+    assert c["counters"][counter] == 0
+    assert line in profiling.format_calls([c])
 
 
 def test_format_calls_lines():
@@ -293,6 +298,7 @@ def test_launches_lie_in_their_phase_spans(cuda, tmp_path):
               "consolidate"):
         assert c["launches"][k] >= STEPS, c["launches"]
     assert c["counters"][sph.RING_OVERFLOWS] == 0
+    assert c["counters"][sph.DENSITY_RING_OVERFLOWS] == 0
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
