@@ -1,61 +1,69 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (gpufluidsimulator_torch) on one NVIDIA card.
+"""Check the PyTorch/CUDA port (gpufluidsimulator_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card
 
-Phases, each printing JSON lines; any failed check exits non-zero:
+Every check holds a result: a kernel against its plain PyTorch version, a
+run against its invariants, a tool against its contract.  No check reads
+a time: benchmark/run.py measures the port, and scripts/torch_probe_*.py
+time one kernel alone.  Phases, each printing JSON lines; any failed check
+exits non-zero:
   1. env      card name and power limit, torch / CUDA / nvcc versions, and
-              the build of the hand-written kernels from csrc/
+              the build of the hand-written kernels from csrc/ (its
+              -Xptxas -v report per entry)
   2. parity   one FluidSim(method="pallas") step and three
               method="pallas_inc" steps on the card against the port's CPU
-              path (2D n=600, 3D n=1,200), re-aligned by ids
+              path (2D n=600, 3D n=1,200), re-aligned by ids; three
+              pallas_inc_cont steps (rate with RESUM_EVERY = 2, then sum)
+              with the carried rho; one FluidSim(method="gridded") step and
+              the packed sweep's accel_mxu (a settled 3D scene of 1,080
+              particles) likewise
   3. run      200 steps of the 3D dam break (260,850 particles) and 20 of
               the 3D double dam break (1,197,770 particles) on "pallas";
-              then the double dam break through FluidSim(method="auto"),
-              which resolves to "pallas_inc", at bench.py's two operating
-              points: 100 warm steps on "pallas" then 200 timed ("early"),
-              on to 2,000 steps then 200 timed ("evolved").  Each run:
-              overflow 0, finite, in bounds, ids a permutation, and launch
-              counts that show every step went through every kernel; at
-              each point one inc.step_planes call runs under CUDA's sync
-              debug mode "error", where a wait for the card fails the run.
-              At each point the same start also runs 200 steps through
-              FluidSim(method="pallas_inc_cont"), the continuity tier:
-              the same checks, its launch counts (force_step_cont and
-              consolidate_rho every step, density at ages 0, 64, 128,
-              192), the carried rho's range, the position gap to the
-              pallas_inc run, step_planes alone with rho seeded and age 1,
-              and an age-0 and an age-1 step under sync debug mode
+              config 2, the 2D dam break of 65,522 particles, for 200 steps
+              through FluidSim(method="gridded") (plain PyTorch: no
+              kernel); then the double dam break through
+              FluidSim(method="auto"), which resolves to "pallas_inc", at
+              bench.py's two operating points: 100 warm steps on "pallas"
+              then 200 ("early"), on to 2,000 steps then 200 ("evolved").
+              Each run: overflow 0, finite, in bounds, ids a permutation,
+              and launch counts that show every step went through every
+              kernel; at each point one inc.step_planes call runs under
+              CUDA's sync debug mode "error", where a wait for the card
+              fails the run.  At each point the same start also runs 200
+              steps through FluidSim(method="pallas_inc_cont"), the
+              continuity tier: the same checks, its launch counts
+              (force_step_cont and consolidate_rho every step, density at
+              ages 0, 64, 128, 192), the carried rho finite, and an age-0
+              and an age-1 step under sync debug mode
   4. kernels  the full-rebuild kernels at the shapes of the 260,850-particle
-              3D dam break (and a jittered copy): held against their plain
-              PyTorch versions on the same inputs, timed with CUDA events,
-              with their bounds; occ_rowmax both alone (row maxima) and as
-              occupancy_bounds (the one occ_rowmax launch that also writes
-              occ_q and occ_s, the steps' call), exactly; occ_rowmax,
-              occupancy_bounds and gather, whose calls are shorter than
-              their launch path, also with their device time and their
-              library call's (torch.profiler; the kernel phases come after
-              the timed runs, which a profiler session slowed), occ_rowmax
-              and occupancy_bounds also cold (cold_ms: device time with L2
-              flushed before each call)
+              3D dam break (and a jittered copy), held against their plain
+              PyTorch versions on the same inputs; occ_rowmax both alone
+              (row maxima) and as occupancy_bounds (the one occ_rowmax
+              launch that also writes occ_q and occ_s, the steps' call)
   5. kernels  the incremental path's kernels (and occ_rowmax,
-              occupancy_bounds, density) at the double dam break's shapes,
-              on the planes of the evolved state and on a copy with
-              numpy-seeded velocity noise (>= 1% movers): against their
-              plain versions, timed, with bounds (occ_rowmax,
-              occupancy_bounds and compact also with device times, the
-              first two also cold); force_step_cont in every form and
-              switch, the 8-channel compact and consolidate_rho
+              occupancy_bounds, density and the plain force) at the double
+              dam break's shapes, on the planes of the evolved state and on
+              a copy with numpy-seeded velocity noise (>= 1% movers),
+              against their plain versions; force_step_cont in every form
+              and switch, the 8-channel compact and consolidate_rho.  Then
+              the packed-pair sweep on the evolved state: accel_mxu with
+              the launch counts zeroed, the kernel against its plain
+              version, its padding accounting (table_stats, the pairs the
+              kernel's query groups evaluate, at most 40% of those its
+              tiles cover, and the exact 27-cell pair ideal), and the
+              rank-plane accel_planes (force) on the same positions,
+              velocities and density, within 1e-6 of its largest
+              acceleration
   6. tools     the user-facing entry points at config 4: the CLI's `run`
               in-process (200 steps, frames, checkpoints, metrics JSON;
               overflow 0, the launch counts), `run --resume` and, in the
               API, pallas_inc from the loaded checkpoint and from the
               state that was saved (bitwise equal), pallas_inc_cont
               across save_planes / load_planes (bitwise, a re-sum among
-              the steps); `bench` on pallas_inc and pallas_inc_cont and
-              scripts/torch_bench.py, held within a factor of 1.25 of the
-              run_inc lines' step_planes_ms; the evolved state rendered
-              twice (equal PNG bytes) and on the CPU (within 1e-5 of the
+              the steps); `bench` on pallas_inc and pallas_inc_cont (rc 0,
+              a finite positive rate); the evolved state rendered twice
+              (equal PNG bytes) and on the CPU (within 1e-5 of the
               maximum, one level), `render` of a checkpoint;
               debug.assert_deterministic on config 3 pallas, config 4
               pallas_inc and pallas_inc_cont, checked_step on a NaN and an
@@ -73,11 +81,12 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               bounds_min[0], the global walls, ghost lanes filled, velocity
               noise) against their plain versions; sharded_run runs config
               5 (4,825,800 particles) on 8 slabs and on 1 for 100 steps of
-              pallas_inc and pallas_inc_cont: ms/step, rate, peak memory,
-              slab counts, both counters 0, the exchanges' share of the
-              step (CUDA events around each exchange); sharded_tools runs
-              `run --sharded` through the CLI and resumes a 4-slab
-              run_sharded from save_sharded / load_sharded bitwise
+              pallas_inc and pallas_inc_cont: both counters 0, ids
+              conserved, the two meshes' positions within 1e-5 by id (and,
+              printed, ms/step, peak memory, slab counts and the
+              exchanges' share of the step); sharded_tools runs `run
+              --sharded` through the CLI and resumes a 4-slab run_sharded
+              from save_sharded / load_sharded bitwise
   8. acceptance  the reference's acceptance gates at its sizes, step
               counts and bars: dt2_parity runs config 1's scene (the 2D
               dam break of 4,096) at half its CFL dt for 1,000 steps on
@@ -95,36 +104,14 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               times on each incremental tier in chunks of 250
               (scripts/torch_soak.py): in every chunk overflow and
               mig_overflow 0, all 1,197,770 particles live, every field
-              finite, with each chunk's ms/step and vmax, and launch
-              counts that show every step went through the tier's kernels
-  9. the kernels line (occ_rowmax's entry leads with occupancy_bounds'
-     numbers, the mode the steps launch, and holds the row-maxima-only
-     call's under row_maxima_only; every entry has launches_sharded and
-     launches_sharded_cont, its launches per config-5 step on 8 slabs,
-     and launches_soak and launches_soak_cont, its launches in each
-     tier's soak), the card line, and the final ok line.
-Phase 2 also runs three pallas_inc_cont steps (rate with RESUM_EVERY = 2,
-then sum) on the card against the port's CPU path, with the carried rho,
-one FluidSim(method="gridded") step (2D n=600, 3D n=1,200) and the packed
-sweep's accel_mxu (a settled 3D scene of 1,080 particles) likewise.
-Phase 3 also runs config 2, the 2D dam break of 65,522 particles, for 200
-steps through FluidSim(method="gridded") (plain PyTorch: no kernel).
-Phase 5 also runs the packed-pair sweep on the evolved double dam break:
-accel_mxu with the launch counts zeroed, the kernel against its plain
-version, its padding accounting (table_stats, the pairs the kernel's
-query groups evaluate, and the exact 27-cell pair ideal), its time and
-bound, and the rank-plane accel_planes (force) on the
-same positions, velocities and density, timed and held within 1e-6 of its
-largest acceleration.
-The redesigned kernels (density, force, force_step, force_step_cont,
-gather, compact, consolidate, consolidate_rho, occ_rowmax, sweep_packed)
-carry in their config-4 (force, gather: config-3) kernel_time lines, and
-in the `redesigned` line, the registers, spills and shared memory of their
-main-path instantiation (from the build's -Xptxas -v report and the
-sweep kernels' own dynamic shared memory queries) and their previous
-design's time (prev_ms, a constant).  Phase 5 also holds the plain force
-kernel against its plain version on both config-4 planes.
-Imports nothing of JAX or of gpufluidsimulator_tpu.
+              finite, and launch counts that show every step went through
+              the tier's kernels
+  9. the kernels line (each kernel's launches in the runs above, per
+     config-5 step on 8 slabs, launches_sharded and launches_sharded_cont,
+     and in each tier's soak, launches_soak and launches_soak_cont), the
+     card line, and the final ok line.
+The runs print their ms per step and each phase its seconds; no check
+reads them.  Imports nothing of JAX or of gpufluidsimulator_tpu.
 """
 
 from __future__ import annotations
@@ -136,53 +123,8 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
-# flops per candidate pair, counted from the kernels' arithmetic
-DENSITY_PAIR_FLOPS = 13
-FORCE_PAIR_FLOPS = 32
-# the continuity step's default form (rate, cont_beta > 0) adds dv.d (8),
-# d2 (2), d4, d4 dot, the clamped correction (4) and the rate sum
-FORCE_CONT_PAIR_FLOPS = FORCE_PAIR_FLOPS + 17
-# the packed sweep (csrc/packed_sweep.cu): every candidate pair costs the
-# difference, r^2, max, rsqrt, r, h - r, max and the two tests; a pair
-# inside the support adds the two coefficients (7) and the six
-# multiply-adds with the three velocity differences (15).  Its bound counts
-# the pairs of the exact 27-cell candidate set, as the rank-plane force
-# bound does, not the padded pairs its three ranges cover.
-PACKED_PAIR_FLOPS = 15
-PACKED_SUPPORT_FLOPS = 22
-# the kernel's test of a segment row against its group's bounding box (6
-# differences, 6 maxima, the squared distance, the compare); its issued
-# rate counts that per row walked, the pair cost per row tested
-PACKED_BOX_FLOPS = 16
-REPS = 20
-# the previous designs' times of the redesigned kernels, as PERF.md
-# section 6 records them (this script on an H100 80GB HBM3 at 700.00 W):
-# force and gather at config 3, the others on the evolved config-4 planes
-PREV_MS = {# the row tile of csrc/tile.cuh, before the z-marching column
-           "force": 0.16429, "force_step": 0.70285,
-           "force_step_cont": 0.80146, "density": 0.27466,
-           "compact": 0.12058, "gather": 0.02869, "consolidate": 0.40340,
-           "consolidate_rho": 0.47705,
-           # occ_rowmax: its device time (torch.profiler), 20 calls in a row
-           "occ_rowmax": 0.01028,
-           # the previous design (a block per query tile over its whole ranges)
-           "sweep_packed": 1.30029}
-PREV_AT_CONFIG3 = ("force", "gather")
-# the instantiation each of them runs on the main paths (K = 8, 3D; the
-# continuity tier's default form, rate; the step's 4 gathered channels
-# with diagnostics on): a prefix of its mangled name
-MAIN_INSTANCE = {"force": "_Z12force_kernelILi8ELi3ELb0ELi0EE",
-                 "force_step": "_Z12force_kernelILi8ELi3ELb1ELi0EE",
-                 "force_step_cont": "_Z12force_kernelILi8ELi3ELb1ELi1EE",
-                 "compact": "_Z14compact_kernel",
-                 "density": "_Z14density_kernelILi8ELi3EE",
-                 "gather": "_Z13gather_kernelILi4EE",
-                 "consolidate": "_Z18consolidate_kernelILb0EE",
-                 "consolidate_rho": "_Z18consolidate_kernelILb1EE",
-                 "occ_rowmax": "_Z17occ_rowmax_kernel",
-                 "sweep_packed": "_Z19packed_sweep_kernel"}
+from scripts.torch_timing import card_line
+
 WARM_EARLY = 100            # bench.py's operating points
 WARM_EVOLVED = 2000
 INC_STEPS = 200
@@ -195,88 +137,6 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, reps: int) -> float:
-    """Mean device time of one call, from CUDA events around ``reps`` calls
-    after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-# profiler sessions a device time may take: a session now and then records
-# no device activity at all (seen on the H100), so an empty one is retried
-PROFILE_TRIES = 3
-
-
-def kernel_us(torch, fn, reps: int) -> dict:
-    """Device time (us) and launches of each kernel, copy and fill that
-    ``reps`` calls of ``fn`` launched, by name, summed by torch.profiler
-    after two warm-up calls; an empty session is retried."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        fn()
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out = {e.key: (e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0}
-        if out:
-            return out
-    check(False, f"torch.profiler saw no device time in {PROFILE_TRIES} "
-                 f"sessions")
-
-
-def device_ms(torch, fn, reps: int) -> float:
-    """Mean device time of one call (kernel_us summed).  For a call
-    shorter than its launch path, time_ms times the host."""
-    return sum(us for us, _ in kernel_us(torch, fn, reps).values()) \
-        / 1e3 / reps
-
-
-def cold_ms(torch, fn, reps: int) -> float:
-    """Mean device time of one call with L2 flushed before it: kernel_us
-    over ``reps`` pairs of a flush (a bitwise_not_ of a FLUSH_BYTES buffer)
-    and a call, less the kernels a flush alone launches."""
-    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
-    flush_keys = set(kernel_us(torch, buf.bitwise_not_, 3))
-    pairs = kernel_us(torch, lambda: (buf.bitwise_not_(), fn()), reps)
-    return sum(us for k, (us, _) in pairs.items()
-               if k not in flush_keys) / 1e3 / reps
-
-
-# kernels whose calls are shorter than their launch path: timed on the
-# device too, with their library call, after the other cases of their
-# phase (the kernel phases run after the timed steps: a torch.profiler
-# session slowed the host-bound steps that came after it)
-DEVICE_TIMED = ("occ_rowmax", "occupancy_bounds", "gather", "compact")
-# of those, the calls whose input a step finds outside L2 while 20 calls
-# in a row find it inside: also timed cold (cold_ms)
-COLD_TIMED = ("occ_rowmax", "occupancy_bounds")
-FLUSH_BYTES = 128 << 20          # over twice the H100's 50 MB of L2
 
 
 def rel_err(a, b) -> tuple:
@@ -303,110 +163,11 @@ def phase_env(torch, ft_build):
           "ptxas": ft_build.ptxas_report(ft_build.build_log["text"])})
 
 
-def redesign_facts(report: dict, dyn_smem: dict) -> dict:
-    """registers, spills, smem_bytes (static + the dynamic ``dyn_smem`` of
-    the kernels that have one) and prev_ms of each redesigned kernel's
-    main-path instantiation."""
-    facts = {}
-    for kernel, prefix in MAIN_INSTANCE.items():
-        hits = [v for k, v in report.items() if k.startswith(prefix)]
-        check(len(hits) == 1, f"ptxas report: {len(hits)} entries for "
-                              f"{kernel} ({prefix})")
-        dyn = dyn_smem.get(kernel, 0)
-        facts[kernel] = {"registers": hits[0]["registers"],
-                         "spills": hits[0]["spills"],
-                         "smem_bytes": hits[0]["static_smem"] + dyn,
-                         "prev_ms": PREV_MS[kernel]}
-    return facts
-
-
-def stencil_pairs(torch, planes, geom):
-    """Candidate pairs the sweeps evaluate on this data: for every valid
-    rank of an interior cell, the valid ranks of its 3^d neighbour cells
-    (self included)."""
-    from gpufluidsimulator_torch.ops import sph
-    from gpufluidsimulator_torch.ops import planes as pm
-    occ = (planes[0] < pm.SENTINEL * 0.5).sum(0).to(torch.float64)
-    centre = sph._window(occ, geom)
-    nbr = sum(sph._window(occ, geom, dz, dy, dx)
-              for dz, dy, dx in sph._offsets(geom.dim))
-    return float((centre * nbr).sum())
-
-
-def plane_touch(torch, planes, geom, region):
-    """Elements a rank loop must read on this data, given dense ranks: the
-    valid slots, and the x probes that find them (a cell's valid ranks plus
-    its first sentinel rank, where it has one) over the cells the loop
-    visits.  ``region``: "all" (occ_rowmax reads every row), "interior"
-    (consolidate) or "sweep" (density, force, force_step: every interior
-    cell, and the 3^d neighbours of each one that holds a particle)."""
-    from gpufluidsimulator_torch.ops import sph
-    from gpufluidsimulator_torch.ops import planes as pm
-    occ = (planes[0] < pm.SENTINEL * 0.5).sum(0)
-    probes = torch.clamp_max(occ + 1, geom.k)
-    if region != "all":
-        inter = pm.interior_mask(geom, occ.device)
-        mask = inter.clone()
-        if region == "sweep":
-            held = sph._window(inter & (occ > 0), geom)
-            for dz, dy, dx in sph._offsets(geom.dim):
-                sph._window(mask, geom, dz, dy, dx)[...] |= held
-        probes = probes[mask]
-    return float(occ.sum()), float(probes.sum())
-
-
-TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "bytes", "flops")
-DEVICE_KEYS = ("device_ms", "library_device_ms", "cold_ms")
-
-
-def timings(torch, name, c, shape, r, deferred) -> None:
-    """ms, plain_ms, library_ms of a case (CUDA events) and its bounds into
-    ``r``; a DEVICE_TIMED kernel's case goes on ``deferred`` for
-    device_times."""
-    r.update(ms=time_ms(torch, c["kernel"], REPS),
-             plain_ms=time_ms(torch, c["plain"], 3),
-             library_ms=(time_ms(torch, c["library"], REPS)
-                         if c["library"] is not None else None),
-             **bounds(c))
-    if name in DEVICE_TIMED:
-        deferred.append((name, shape, c, r))
-
-
-def device_times(torch, deferred) -> None:
-    """device_ms, library_device_ms and, for COLD_TIMED, cold_ms
-    (torch.profiler) of the deferred cases, into their results; empties
-    ``deferred``."""
-    while deferred:
-        name, shape, c, r = deferred.pop(0)
-        r.update(device_ms=device_ms(torch, c["kernel"], REPS),
-                 library_device_ms=(device_ms(torch, c["library"], REPS)
-                                    if c["library"] is not None else None))
-        if name in COLD_TIMED:
-            r["cold_ms"] = cold_ms(torch, c["kernel"], REPS)
-        emit({"phase": "device_time", "kernel": name, "shape": shape,
-              **{k: r[k] for k in ("ms", "library_ms") + DEVICE_KEYS
-                 if k in r}})
-
-
-def bounds(c) -> dict:
-    """bound_ms: the larger of the bytes the kernel must move on this run's
-    data over the memory rate and its pair operations over the float32
-    rate."""
-    by_bytes = c["bytes"] / HBM_BYTES_PER_S
-    by_ops = c["flops"] / F32_FLOPS
-    return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                bytes=c["bytes"], flops=c["flops"])
-
-
-def phase_kernels(torch, ft, facts):
+def phase_kernels(torch, ft):
     from gpufluidsimulator_torch.ops import planes as pm
     from gpufluidsimulator_torch.ops import route, sph
 
     dev = torch.device("cuda")
-    results = {}
-    deferred = []
     for label, jitter in (("lattice", 0.0), ("jittered", 0.3)):
         params, state = ft.scenes.dam_break(n=262144, dim=3, jitter=jitter,
                                             seed=1, device=dev)
@@ -421,71 +182,36 @@ def phase_kernels(torch, ft, facts):
         acc = sph.accel_planes(planes, rho, occ_q, occ_s, params, geom)
         stack = torch.cat([acc, rho[None]]).contiguous()
         slot, ok = table.slot, table.ok
-        n = state.n
-        kc = geom.k * geom.cells
-        dim = geom.dim
-        valid, probes_all = plane_touch(torch, planes, geom, "all")
-        _, probes = plane_touch(torch, planes, geom, "sweep")
-        rows_b = geom.pz * geom.n_bx * geom.py * 4
-        bounds_b = 4 * geom.nz * geom.n_bx * geom.n_by * 4
         cases = {
             "occ_rowmax": dict(
                 kernel=lambda: pm.occ_rowmax(planes[0], geom),
                 plain=lambda: pm.occ_rowmax_plain(planes[0]),
-                library=lambda: torch.amax(torch.sum(
-                    planes[0] < pm.SENTINEL * 0.5, dim=0,
-                    dtype=torch.int32), dim=-1),
-                tol=0.0, exact=True, bytes=probes_all * 4 + rows_b, flops=0),
+                tol=0.0, exact=True),
             # the step's call: one occ_rowmax launch writes occ_q, occ_s
             "occupancy_bounds": dict(
                 kernel=lambda: pm.occupancy_bounds(planes, params, geom),
                 plain=lambda: pm.occupancy_bounds_plain(planes, params,
                                                         geom),
-                library=None, tol=0.0, exact=True,
-                bytes=probes_all * 4 + bounds_b, flops=0),
+                tol=0.0, exact=True),
             "place": dict(
                 kernel=lambda: route.place(fields, slot, ok, geom, 3),
                 plain=lambda: route.place_plain(fields, slot, ok, geom, 3),
-                library=None, tol=0.0, exact=True,
-                bytes=6 * n * 4 + n * 4 + n + 6 * kc * 4,
-                flops=0),
+                tol=0.0, exact=True),
             "density": dict(
                 kernel=lambda: sph.density_planes(planes[:3], occ_q, occ_s,
                                                   params, geom),
                 plain=lambda: sph.density_plain(planes[:3], params, geom),
-                library=None, tol=1e-5, exact=False,
-                bytes=(probes + (dim - 1) * valid + kc) * 4,
-                flops=DENSITY_PAIR_FLOPS * stencil_pairs(torch, planes,
-                                                         geom)),
+                tol=1e-5, exact=False),
             "force": dict(
                 kernel=lambda: sph.accel_planes(planes, rho, occ_q, occ_s,
                                                 params, geom),
                 plain=lambda: sph.accel_plain(planes, rho, params, geom),
-                library=None, tol=1e-4, exact=False,
-                bytes=(probes + 2 * dim * valid + 3 * kc) * 4,
-                flops=FORCE_PAIR_FLOPS * stencil_pairs(torch, planes, geom)),
+                tol=1e-4, exact=False),
             "gather": dict(
                 kernel=lambda: route.gather(stack, slot),
                 plain=lambda: route.gather_plain(stack, slot),
-                library=None, tol=0.0, exact=True,
-                bytes=n * 4 * 4 + n * 4 + n * 4 * 4,
-                flops=0),
+                tol=0.0, exact=True),
         }
-        # one PyTorch call computing the same function, where one exists:
-        # the (N, C) rows at the clamped slots
-        flat_stack = stack.reshape(stack.shape[0], -1)
-        idx = torch.clamp_max(slot.to(torch.int64), kc - 1)
-        cases["gather"]["library"] = lambda: flat_stack.T[idx]
-        slot_ok = slot[ok].to(torch.int64)
-        vals_ok = fields[:, ok]
-        chan = torch.arange(6, device=dev)[:, None]
-        # out of place: a copy of the sentinel-filled planes with the
-        # particles scattered in, the whole function of place
-        prefilled = route.place_plain(fields[:, :0], slot[:0], ok[:0], geom,
-                                      3).reshape(6, -1)
-        cases["place"]["library"] = lambda: prefilled.index_put(
-            (chan, slot_ok[None, :]), vals_ok)
-
         for name, c in cases.items():
             got, want = c["kernel"](), c["plain"]()
             torch.cuda.synchronize()
@@ -507,21 +233,8 @@ def phase_kernels(torch, ft, facts):
             emit({"phase": "kernel_check", "kernel": name, "input": label,
                   "max_abs_err": err, "rel_err": rel, "tol": c["tol"],
                   "exact": c["exact"]})
-            r = results.setdefault(name, {"max_abs_err": 0.0})
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if label == "lattice":
-                shape = "dam_break n=262144 3D (260,850 particles)"
-                timings(torch, name, c, shape, r, deferred)
-                emit({"phase": "kernel_time", "kernel": name,
-                      "shape": shape, "valid_slots": valid,
-                      "probe_slots": probes,
-                      **{k: r[k] for k in TIME_KEYS if k in r},
-                      **(facts.get(name, {}) if name in PREV_AT_CONFIG3
-                         else {})})
-        device_times(torch, deferred)
-        del cases, planes, table, rho, acc, stack, prefilled
+        del cases, planes, table, rho, acc, stack
         torch.cuda.empty_cache()
-    return results
 
 
 def aligned(state):
@@ -766,9 +479,8 @@ def phase_gridded_run(torch, ft, ft_build):
 
 def phase_inc_run(torch, ft, ft_build):
     """Config 4 through FluidSim(method="auto") at bench.py's two operating
-    points.  Returns the evolved state, the params, the launch counts of
-    the early runs (pallas_inc, pallas_inc_cont) and step_planes' ms at
-    each point."""
+    points.  Returns the evolved state, the params and the launch counts
+    of the early runs (pallas_inc, pallas_inc_cont)."""
     from gpufluidsimulator_torch.models import solver
     from gpufluidsimulator_torch.ops import inc
     from gpufluidsimulator_torch.ops import planes as pm
@@ -787,7 +499,6 @@ def phase_inc_run(torch, ft, ft_build):
     sim = ft.FluidSim(params, warm.state)            # method="auto"
     del warm
     counts = counts_cont = {}
-    step_planes_ms = {}
     done = WARM_EARLY
     for label, at in (("early", WARM_EARLY), ("evolved", WARM_EVOLVED)):
         if at > done:
@@ -819,8 +530,7 @@ def phase_inc_run(torch, ft, ft_build):
                            f"{want}")
         if label == "early":
             counts = got
-        # the steady step alone (conversions excluded), as bench.py's
-        # slope timer sees it
+        # one step alone (conversions excluded) must not wait for the card
         s0 = inc.to_planes(sim.state.pos, sim.state.vel, sim.state.ids,
                            params, geom)
         m_cap = inc.mover_capacity(n)
@@ -832,27 +542,18 @@ def phase_inc_run(torch, ft, ft_build):
             check(False, f"step_planes waited for the card: {err}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
-
-        def steps(s=s0):
-            for _ in range(20):
-                s = inc.step_planes(s, params, geom, m_cap)
-            return s
-        step_ms = time_ms(torch, steps, 3) / 20
-        step_planes_ms[label] = step_ms
         del s0
         emit({"phase": "run_inc", "scene": "double_dam_break_3d_1197770",
               "method": resolved, "point": label,
               "steps_before": done - INC_STEPS, "steps": INC_STEPS,
               "ms_per_step": ms, "particle_steps_per_s": n * 1e3 / ms,
-              "step_planes_ms": step_ms,
-              "step_planes_particle_steps_per_s": n * 1e3 / step_ms,
               "wall_s": wall, "peak_mem_gb": peak, "launches": got,
               **checks})
         got = cont_point(torch, ft, ft_build, params, start, sim.state,
                          label, done - INC_STEPS)
         if label == "early":
             counts_cont = got
-    return sim.state, params, counts, counts_cont, step_planes_ms
+    return sim.state, params, counts, counts_cont
 
 
 def positions_by_id(st):
@@ -866,7 +567,7 @@ def cont_point(torch, ft, ft_build, params, start, inc_end, label, before):
     FluidSim(method="pallas_inc_cont") from ``start`` (the state that the
     pallas_inc run timed there started from; ``inc_end`` is where it
     ended).  Returns the launch counts."""
-    from gpufluidsimulator_torch.ops import inc, sph
+    from gpufluidsimulator_torch.ops import inc
     from gpufluidsimulator_torch.ops import planes as pm
 
     n = start.n
@@ -923,28 +624,13 @@ def cont_point(torch, ft, ft_build, params, start, inc_end, label, before):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     check(s2.age == 2, f"age {s2.age} after two steps")
-    del s2
-    # the steady step alone, as bench.py:76-84 times it: rho seeded by one
-    # density sweep, age pinned to 1 (no re-sum in the 20 steps)
-    p6 = pm.halo_x(s0.fields6)
-    occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
-    seeded = s0._replace(rhop=sph.density_planes(p6[:3], occ_q, occ_s,
-                                                 params, geom), age=1)
-
-    def steps(s=seeded):
-        for _ in range(20):
-            s = inc.step_planes(s, params, geom, m_cap)
-        return s
-    step_ms = time_ms(torch, steps, 3) / 20
-    del s0, seeded, p6
+    del s0, s2
     emit({"phase": "run_inc_cont",
           "scene": "double_dam_break_3d_1197770",
           "method": sim.method, "cont_form": params.cont_form,
           "resum_every": inc.RESUM_EVERY, "point": label,
           "steps_before": before, "steps": INC_STEPS,
           "ms_per_step": ms, "particle_steps_per_s": n * 1e3 / ms,
-          "step_planes_ms": step_ms,
-          "step_planes_particle_steps_per_s": n * 1e3 / step_ms,
           "wall_s": wall, "peak_mem_gb": peak, "launches": got,
           "carried_rho": {"min": float(rho.min()), "mean": float(rho.mean()),
                           "max": float(rho.max())},
@@ -952,7 +638,7 @@ def cont_point(torch, ft, ft_build, params, start, inc_end, label, before):
     return got
 
 
-def phase_inc_kernels(torch, ft, state, params, facts):
+def phase_inc_kernels(torch, ft, state, params):
     """The incremental path's kernels at config 4: on the planes of
     ``state`` and on a copy with numpy-seeded velocity noise that moves
     about 3% of the particles across a cell face in one step.  The
@@ -964,9 +650,6 @@ def phase_inc_kernels(torch, ft, state, params, facts):
     geom = pm.geometry(params)
     n = state.n
     m_cap = inc.mover_capacity(n)
-    kc = geom.k * geom.cells
-    plane_b = kc * 4
-    results = {}
     base = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
     rng = np.random.default_rng(7)
     noisy6 = base.fields6.clone()
@@ -976,15 +659,6 @@ def phase_inc_kernels(torch, ft, state, params, facts):
     flat_v = noisy6[3:].reshape(3, -1)
     flat_v[:, live] += torch.from_numpy(noise).to(flat_v)
     inputs = (("evolved", base.fields6), ("vel_noise", noisy6))
-    inter = pm.interior_mask(geom, base.idp.device)
-    touched = torch.zeros(geom.cells + 1, dtype=torch.bool,
-                          device=base.idp.device)
-    touched[:-1] |= inter.reshape(-1)
-    touched[1:] |= inter.reshape(-1)
-    starts_read = float(touched.sum())
-    rows_b = geom.pz * geom.n_bx * geom.py * 4
-    bounds_b = 4 * geom.nz * geom.n_bx * geom.n_by * 4
-    deferred = []
     for label, fields6 in inputs:
         p6 = pm.halo_x(fields6)
         occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
@@ -997,193 +671,109 @@ def phase_inc_kernels(torch, ft, state, params, facts):
         new6c, rhoc, flagc = sph.accel_step_cont(p6, rho, occ_q, occ_s,
                                                  params, geom)
         chans8 = [*new6c, base.idp, rhoc]
-        movers8, m8, total8 = inc.compact(chans8, flagc, m_cap)
+        movers8, m8, _ = inc.compact(chans8, flagc, m_cap)
         arr8 = inc.arrival_planes(movers8, m8, params, geom)
         m_i, total_i = int(m), int(total)
-        m8_i, total8_i = int(m8), int(total8)
-        check(m_i > 0 and m8_i > 0, f"config-4 kernels ({label}): no movers")
+        check(m_i > 0 and int(m8) > 0,
+              f"config-4 kernels ({label}): no movers")
         if label == "vel_noise":
             check(total_i >= 0.01 * n, f"config-4 kernels ({label}): "
                                        f"{total_i} movers < 1%")
-        pairs = stencil_pairs(torch, p6, geom)
-        valid, probes_all = plane_touch(torch, p6, geom, "all")
-        _, probes = plane_touch(torch, p6, geom, "sweep")
-        _, probes_in = plane_touch(torch, new6, geom, "interior")
-        _, probes_in8 = plane_touch(torch, new6c, geom, "interior")
-        # consolidate reads the taken arrival rows that fit (m less the
-        # drops) and starts[c], starts[c + 1] of each interior cell
-        rows_read = m_i - int(inc.consolidate(new6, base.idp, flagp, arr,
-                                              geom)[2])
-        rows_read8 = m8_i - int(inc.consolidate(new6c, base.idp, flagc, arr8,
-                                                geom, rhop=rhoc)[3])
-        kept, kept8 = valid - total_i, valid - total8_i
-        flat7 = torch.cat([new6.reshape(6, -1), base.idp.reshape(1, -1)])
-        flat_flag = flagp.reshape(-1)
         cases = {
             "occ_rowmax": dict(
                 kernel=lambda: pm.occ_rowmax(p6[0], geom),
-                plain=lambda: pm.occ_rowmax_plain(p6[0]),
-                library=lambda: torch.amax(torch.sum(
-                    p6[0] < pm.SENTINEL * 0.5, dim=0, dtype=torch.int32),
-                    dim=-1),
-                bytes=probes_all * 4 + rows_b,
-                flops=0),
+                plain=lambda: pm.occ_rowmax_plain(p6[0])),
             # the step's call: one occ_rowmax launch writes occ_q, occ_s
             "occupancy_bounds": dict(
                 kernel=lambda: pm.occupancy_bounds(p6, params, geom),
-                plain=lambda: pm.occupancy_bounds_plain(p6, params, geom),
-                library=None, bytes=probes_all * 4 + bounds_b, flops=0),
+                plain=lambda: pm.occupancy_bounds_plain(p6, params, geom)),
             "density": dict(
                 kernel=lambda: sph.density_planes(p6[:3], occ_q, occ_s,
                                                   params, geom),
                 plain=lambda: sph.density_plain(p6[:3], params, geom),
-                library=None, tol=1e-5,
-                bytes=(probes + 2 * valid) * 4 + plane_b,
-                flops=DENSITY_PAIR_FLOPS * pairs),
+                tol=1e-5),
             "force": dict(
                 kernel=lambda: sph.accel_planes(p6, rho, occ_q, occ_s,
                                                 params, geom),
                 plain=lambda: sph.accel_plain(p6, rho, params, geom),
-                library=None, tol=1e-4,
-                bytes=(probes + 6 * valid) * 4 + 3 * plane_b,
-                flops=FORCE_PAIR_FLOPS * pairs),
-            "force_step": dict(
-                kernel=lambda: sph.accel_step(p6, rho, occ_q, occ_s, params,
-                                              geom),
-                plain=lambda: sph.accel_step_plain(p6, rho, params, geom),
-                library=None, bytes=(probes + 6 * valid) * 4 + 7 * plane_b,
-                flops=FORCE_PAIR_FLOPS * pairs),
-            "force_step_cont": dict(
-                kernel=lambda: sph.accel_step_cont(p6, rho, occ_q, occ_s,
-                                                   params, geom),
-                plain=lambda: sph.accel_step_cont_plain(p6, rho, params,
-                                                        geom),
-                library=None, bytes=(probes + 6 * valid) * 4 + 8 * plane_b,
-                flops=FORCE_CONT_PAIR_FLOPS * pairs),
+                tol=1e-4),
             "compact": dict(
                 kernel=lambda: inc.compact([*new6, base.idp], flagp,
                                            m_cap),
                 plain=lambda: inc.compact_plain([*new6, base.idp], flagp,
-                                                m_cap),
-                library=lambda: flat7[:, torch.nonzero(
-                    flat_flag > 0.5)[:m_cap, 0]],
-                bytes=plane_b + 7 * min(total_i, m_cap) * 4
-                + 7 * m_cap * 4, flops=0),
+                                                m_cap)),
             "compact_8ch": dict(
                 kernel=lambda: inc.compact(chans8, flagc, m_cap),
-                plain=lambda: inc.compact_plain(chans8, flagc, m_cap),
-                timed=False),
+                plain=lambda: inc.compact_plain(chans8, flagc, m_cap)),
             "consolidate": dict(
                 kernel=lambda: inc.consolidate(new6, base.idp, flagp, arr,
                                                geom),
                 plain=lambda: inc.consolidate_plain(new6, base.idp, flagp,
-                                                    arr, geom),
-                library=None,
-                # x probes of the interior cells, the flag of each valid
-                # slot, the other 6 channels of each kept one, the arrival
-                # rows and sort index read, the start table entries; 7
-                # planes written
-                bytes=(probes_in + valid + 6 * kept + 7 * rows_read) * 4
-                + rows_read * 8 + starts_read * 4 + 7 * plane_b, flops=0),
+                                                    arr, geom)),
             "consolidate_rho": dict(
                 kernel=lambda: inc.consolidate(new6c, base.idp, flagc, arr8,
                                                geom, rhop=rhoc),
                 plain=lambda: inc.consolidate_plain(new6c, base.idp, flagc,
-                                                    arr8, geom, rhoc),
-                library=None,
-                # as consolidate, with rho read for each kept slot and from
-                # each taken mover row, and an 8th plane written
-                bytes=(probes_in8 + valid + 7 * kept8 + 8 * rows_read8) * 4
-                + rows_read8 * 8 + starts_read * 4 + 8 * plane_b, flops=0),
+                                                    arr8, geom, rhoc)),
         }
         for name, c in cases.items():
             entry = {"phase": "kernel_check", "kernel": name,
                      "input": f"double_dam_break 3D ({label})"}
-            if name.startswith("force_step"):
-                cont = name == "force_step_cont"
-                err = 0.0
-                for form, kw in (CONT_CASES if cont else {"": {}}).items():
-                    pf = params.replace(**kw)
-                    fn = sph.accel_step_cont if cont else sph.accel_step
-                    plain = (sph.accel_step_cont_plain if cont
-                             else sph.accel_step_plain)
-                    got = fn(p6, rho, occ_q, occ_s, pf, geom)
-                    want = plain(p6, rho, pf, geom)
-                    torch.cuda.synchronize()
-                    e = check_force_step(torch, got, want, p6, pf, geom,
-                                         f"{name} {form} ({label})")
-                    err = max(err, e.pop("max_abs_err"))
-                    emit({**entry, "cont_form": form or None, **kw, **e,
-                          "max_abs_err": err, "movers": m_i,
-                          "flagged": total_i})
-                del got, want
+            got, want = c["kernel"](), c["plain"]()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if "tol" in c:
+                err, rel = rel_err(got[0], want[0])
+                check(rel <= c["tol"], f"{name} ({label}) rel err {rel} "
+                                       f"> {c['tol']}")
+                entry.update(rel_err=rel, tol=c["tol"])
             else:
-                got, want = c["kernel"](), c["plain"]()
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                err = max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(got, want))
+                check(same, f"{name} ({label}) differs from its plain "
+                            f"version")
+                entry.update(exact=True, channels=int(got[0].shape[0])
+                             if name.startswith("compact") else None)
+            entry["max_abs_err"] = err
+            emit(entry)
+            del got, want
+        for name in ("force_step", "force_step_cont"):
+            entry = {"phase": "kernel_check", "kernel": name,
+                     "input": f"double_dam_break 3D ({label})"}
+            cont = name == "force_step_cont"
+            err = 0.0
+            for form, kw in (CONT_CASES if cont else {"": {}}).items():
+                pf = params.replace(**kw)
+                fn = sph.accel_step_cont if cont else sph.accel_step
+                plain = (sph.accel_step_cont_plain if cont
+                         else sph.accel_step_plain)
+                got = fn(p6, rho, occ_q, occ_s, pf, geom)
+                want = plain(p6, rho, pf, geom)
                 torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                if "tol" in c:
-                    err, rel = rel_err(got[0], want[0])
-                    check(rel <= c["tol"], f"{name} ({label}) rel err {rel} "
-                                           f"> {c['tol']}")
-                    entry.update(rel_err=rel, tol=c["tol"])
-                else:
-                    same = all(torch.equal(a, b) for a, b in zip(got, want))
-                    err = max(float((a.double() - b.double()).abs().max())
-                              for a, b in zip(got, want))
-                    check(same, f"{name} ({label}) differs from its plain "
-                                f"version")
-                    entry.update(exact=True, channels=int(got[0].shape[0])
-                                 if name.startswith("compact") else None)
-                entry["max_abs_err"] = err
-                emit(entry)
-                del got, want
-            r = results.setdefault(name, {"max_abs_err": 0.0})
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if label != "evolved" or not c.get("timed", True):
-                continue
-            shape = ("double_dam_break n=1e6 3D (1,197,770 particles), "
-                     "evolved planes")
-            timings(torch, name, c, shape, r, deferred)
-            r["movers"] = m8_i if name.endswith("_rho") else m_i
-            emit({"phase": "kernel_time", "kernel": name, "shape": shape,
-                  "valid_slots": valid, "probe_slots": probes,
-                  **{k: r[k] for k in TIME_KEYS + ("movers",) if k in r},
-                  **(facts.get(name, {}) if name not in PREV_AT_CONFIG3
-                     else {})})
-        device_times(torch, deferred)
-        del cases, new6, flagp, movers, arr, rho, flat7, p6
+                e = check_force_step(torch, got, want, p6, pf, geom,
+                                     f"{name} {form} ({label})")
+                err = max(err, e.pop("max_abs_err"))
+                emit({**entry, "cont_form": form or None, **kw, **e,
+                      "max_abs_err": err, "movers": m_i,
+                      "flagged": total_i})
+            del got, want
+        del cases, new6, flagp, movers, arr, rho, p6
         del new6c, rhoc, flagc, chans8, movers8, arr8
         torch.cuda.empty_cache()
-    return results
 
 
-def support_pairs(torch, f, desc, params) -> float:
-    """Covered pairs of the packed sweep inside the kernel support
-    (r^2 in (1e-16, h^2)): the pairs whose coefficients it computes."""
-    from gpufluidsimulator_torch.ops import mxu_sweep as mx
-    qt, tile, lo, hi = mx._slots(desc)
-    fq = f.reshape(-1, mx.TQ, 8)
-    lane = torch.arange(mx.TC, device=f.device)
-    total = 0
-    for s0 in range(0, qt.numel(), 2048):
-        sl = slice(s0, s0 + 2048)
-        jid = tile[sl, None] * mx.TC + lane
-        rng = (jid >= lo[sl, None]) & (jid < hi[sl, None])
-        d = fq[qt[sl]][:, None, :, :3] - fq[tile[sl]][:, :, None, :3]
-        r2 = (d * d).sum(-1)
-        total += int((rng[:, :, None] & (r2 > 1e-16)
-                      & (r2 < params.h * params.h)).sum())
-    return float(total)
-
-
-def packed_inputs(torch, state, params) -> dict:
-    """The packed sweep's input on a state, from the rank planes: the
-    slot-sorted positions and velocities with the density sweep's rho
-    (floored at 1e-3 rest density, as accel_planes' EOS takes it) and its
-    pressure (``args``), and the planes' own density and acceleration."""
-    from gpufluidsimulator_torch.ops import physics, route, sph
+def phase_packed_sweep(torch, ft, ft_build, state, params):
+    """The packed-pair sweep on the evolved config-4 state: accel_mxu with
+    the counts zeroed, the kernel against its plain version, the padding
+    accounting, and the rank-plane accel_planes (plain force) on the same
+    positions, velocities and rho (the density sweep's, floored at 1e-3
+    rest density, as accel_planes' EOS takes it, and its pressure), held
+    particle by particle.  Returns the launches."""
+    from gpufluidsimulator_torch.ops import grid, mxu_sweep, physics, route
     from gpufluidsimulator_torch.ops import planes as pm
+    from gpufluidsimulator_torch.ops import sph
 
     geom = pm.geometry(params)
     table = pm.build_planes(state.pos, state.vel, state.ids, params, geom)
@@ -1196,36 +786,9 @@ def packed_inputs(torch, state, params) -> dict:
     per = route.gather(torch.cat([acc_p, rho_p[None]]).contiguous(),
                        table.slot)
     rho = torch.clamp_min(per[:, 3], 1e-3 * params.rest_density)
-    return dict(geom=geom, planes=planes, occ_q=occ_q, occ_s=occ_s,
-                rho_p=rho_p, acc_planes=per[:, :3],
-                args=(table.pos_s, table.vel_s, rho,
-                      physics.eos_pressure(rho, params)))
-
-
-def evaluated_pairs(torch, f, cids, desc, params) -> tuple:
-    """(evaluated, tested): the pairs of the kernel's query groups' row
-    segments (mxu_sweep.group_segments), which it walks, and of the rows of
-    those within h of a group's bounding box (group_candidates), which it
-    tests; each row against the GROUP queries of its group (pad queries
-    included, as covered_pairs counts a tile's 128)."""
-    from gpufluidsimulator_torch.ops import mxu_sweep as mx
-    _, lo, hi = mx.group_segments(cids, desc, params)
-    _, j = mx.group_candidates(f, cids, desc, params)
-    return float((hi - lo).sum()) * mx.GROUP, float(j.numel()) * mx.GROUP
-
-
-def phase_packed_sweep(torch, ft, ft_build, state, params, facts):
-    """The packed-pair sweep on the evolved config-4 state: accel_mxu with
-    the counts zeroed, the kernel against its plain version, the padding
-    accounting, the kernel's time and bound, and the rank-plane
-    accel_planes (plain force) on the same positions, velocities and rho,
-    timed and held particle by particle.  Returns (kernel entry, launches)."""
-    from gpufluidsimulator_torch.ops import grid, mxu_sweep, sph
-
-    inp = packed_inputs(torch, state, params)
-    geom, planes, rho_p = inp["geom"], inp["planes"], inp["rho_p"]
-    occ_q, occ_s, args = inp["occ_q"], inp["occ_s"], inp["args"]
-    n = state.n
+    args = (table.pos_s, table.vel_s, rho, physics.eos_pressure(rho, params))
+    acc_planes = per[:, :3]
+    del planes, rho_p, acc_p
 
     torch.cuda.synchronize()
     ft_build.reset_launches()
@@ -1238,22 +801,16 @@ def phase_packed_sweep(torch, ft, ft_build, state, params, facts):
     # both in slot-sorted order; accel_planes has no gravity either.  The
     # largest |a| (a close pair) sets the scale: 1e-6 of it still fails a
     # dropped viscosity term or a dropped neighbour range
-    err_p, rel_p = rel_err(acc, inp["acc_planes"])
+    err_p, rel_p = rel_err(acc, acc_planes)
     check(rel_p <= 1e-6, f"accel_mxu vs accel_planes: rel {rel_p}")
     norm = torch.linalg.vector_norm
-    rms_p = float(norm((acc - inp["acc_planes"]).double())
-                  / norm(inp["acc_planes"].double()))
+    rms_p = float(norm((acc - acc_planes).double())
+                  / norm(acc_planes.double()))
 
     f, cids, _ = mxu_sweep.pack(*args, params)
     desc = mxu_sweep.build_desc(cids, f.shape[0], params)
     got = mxu_sweep.sweep_packed(f, cids, desc, params)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
     want_f = mxu_sweep.sweep_packed_plain(f, cids, desc, params)
-    t1.record()
-    torch.cuda.synchronize()
-    plain_ms = t0.elapsed_time(t1)
     err, rel = rel_err(got, want_f)
     check(rel <= 1e-5, f"sweep_packed rel err {rel} > 1e-5")
     emit({"phase": "kernel_check", "kernel": "sweep_packed",
@@ -1265,52 +822,28 @@ def phase_packed_sweep(torch, ft, ft_build, state, params, facts):
     hist = np.bincount(cids_np, minlength=grid.num_padded_cells(params))
     ideal = int(sum(hist[cids_np + o].sum()
                     for o in grid.neighbor_offsets(params)))
-    support = support_pairs(torch, f, desc, params)
-    evaluated, tested = evaluated_pairs(torch, f, cids, desc, params)
+    # the pairs of the kernel's query groups' row segments, which it walks,
+    # and of the rows of those within h of a group's bounding box, which it
+    # tests; each row against the GROUP queries of its group (pad queries
+    # included, as covered_pairs counts a tile's 128)
+    _, lo, hi = mxu_sweep.group_segments(cids, desc, params)
+    _, j = mxu_sweep.group_candidates(f, cids, desc, params)
+    evaluated = float((hi - lo).sum()) * mxu_sweep.GROUP
+    tested = float(j.numel()) * mxu_sweep.GROUP
     check(evaluated <= 0.4 * stats["covered_pairs"],
           f"sweep_packed evaluates {evaluated} pairs, over 40% of the "
           f"{stats['covered_pairs']} its tiles' ranges cover")
-    stats.update(candidate_pair_ideal=ideal, support_pairs=support,
+    stats.update(candidate_pair_ideal=ideal,
                  evaluated_pairs=evaluated, tested_pairs=tested,
                  pad_eval_vs_ideal=stats["eval_pairs"] / ideal,
                  pad_covered_vs_ideal=stats["covered_pairs"] / ideal,
                  evaluated_vs_ideal=evaluated / ideal,
                  evaluated_vs_covered=evaluated / stats["covered_pairs"])
     emit({"phase": "packed_table", **stats})
-
-    q = f.shape[0] // mxu_sweep.TQ
-    c = dict(bytes=f.numel() * 4 + n * 4 + q * 8 * 4 + f.shape[0] * 3 * 4,
-             flops=PACKED_PAIR_FLOPS * ideal + PACKED_SUPPORT_FLOPS * support)
-    r = dict(max_abs_err=err,
-             ms=time_ms(torch, lambda: mxu_sweep.sweep_packed(
-                 f, cids, desc, params), REPS),
-             plain_ms=plain_ms, library_ms=None, **bounds(c))
-    emit({"phase": "kernel_time", "kernel": "sweep_packed",
-          "shape": f"double_dam_break n=1e6 3D ({n:,} particles), evolved, "
-                   f"packed: Npad {f.shape[0]}, Q {q}",
-          "candidate_pairs": ideal, "covered_pairs": stats["covered_pairs"],
-          "evaluated_pairs": evaluated, "tested_pairs": tested,
-          "support_pairs": support,
-          **facts["sweep_packed"],
-          "gflops_useful": c["flops"] / r["ms"] / 1e6,
-          "gflops_issued": (PACKED_BOX_FLOPS * evaluated / mxu_sweep.GROUP
-                            + PACKED_PAIR_FLOPS * tested
-                            + PACKED_SUPPORT_FLOPS * support) / r["ms"] / 1e6,
-          **{k: r[k] for k in TIME_KEYS}})
-    emit({"phase": "packed_vs_planes", "particles": n,
-          "accel_mxu_ms": time_ms(torch, lambda: mxu_sweep.accel_mxu(
-              *args, params), 5),
-          "pack_ms": time_ms(torch, lambda: mxu_sweep.pack(*args, params),
-                             5),
-          "build_desc_ms": time_ms(torch, lambda: mxu_sweep.build_desc(
-              cids, f.shape[0], params), 5),
-          "sweep_packed_ms": r["ms"],
-          "accel_planes_ms": time_ms(torch, lambda: sph.accel_planes(
-              planes, rho_p, occ_q, occ_s, params, geom), REPS),
+    emit({"phase": "packed_vs_planes", "particles": state.n,
           "max_abs_err": err_p, "rel_err": rel_p, "tol": 1e-6,
-          "rms_rel_err": rms_p,
-          "gravity": "in neither"})
-    return r, counts
+          "rms_rel_err": rms_p, "gravity": "in neither"})
+    return counts
 
 
 # the continuity forms and switches the on-card checks cover
@@ -1361,13 +894,11 @@ def check_force_step(torch, got, want, p6, params, geom, what):
     return out
 
 
-# the tools phase: the CLI run at config 4 (two report intervals), the
-# steps after each resume, and how far bench's time of step_planes may lie
-# from the run_inc phase's
+# the tools phase: the CLI run at config 4 (two report intervals) and the
+# steps after each resume
 TOOLS_STEPS = 200
 TOOLS_REPORT = 100
 TOOLS_RESUME = 100
-BENCH_FACTOR = 1.25
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
@@ -1533,55 +1064,26 @@ def tools_resume(torch, ft, tmp, scene4, latest, saved):
           "save_planes_s": save_s, "load_planes_s": load_s})
 
 
-def tools_bench(scene4, step_planes_ms):
-    """bench at config 4 on both tiers and scripts/torch_bench.py; bench's
-    ms_per_frame on pallas_inc and torch_bench's rates against the
-    step_planes times of the run_inc phase."""
-    import contextlib
-    import importlib.util
-    import io
-    from pathlib import Path
-
+def tools_bench(scene4):
+    """bench at config 4 on both tiers: rc 0 and a finite, positive rate
+    in its JSON line."""
     lines = {}
     for method in ("pallas_inc", "pallas_inc_cont"):
         rc, out = cli_call(["bench", *scene4, "--method", method])
         check(rc == 0, f"cli bench {method}: rc {rc}")
         lines[method] = last_json(out)
-    spec = importlib.util.spec_from_file_location(
-        "torch_bench", Path(__file__).resolve().parent / "scripts"
-        / "torch_bench.py")
-    tb = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tb)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = tb.main()
-    check(rc == 0, f"torch_bench: rc {rc}")
-    tb_line = last_json(buf.getvalue().splitlines())
-    n = tb_line["particles"]
-    ratio = lines["pallas_inc"]["ms_per_frame"] / step_planes_ms["early"]
-    check(1 / BENCH_FACTOR <= ratio <= BENCH_FACTOR,
-          f"bench ms_per_frame {lines['pallas_inc']['ms_per_frame']} vs "
-          f"run_inc step_planes_ms {step_planes_ms['early']}: ratio {ratio}")
-    tb_ratio = {}
-    for point in ("early", "evolved"):
-        ms = n * 1e3 / tb_line["operating_points"][point]["value"]
-        tb_ratio[point] = ms / step_planes_ms[point]
-        check(1 / BENCH_FACTOR <= tb_ratio[point] <= BENCH_FACTOR,
-              f"torch_bench {point} {ms} ms vs run_inc step_planes_ms "
-              f"{step_planes_ms[point]}: ratio {tb_ratio[point]}")
-    emit({"phase": "tools", "step": "bench", "card": card_line(),
-          "bench": lines, "torch_bench": tb_line,
-          "run_inc_step_planes_ms": step_planes_ms,
-          "bench_pallas_inc_vs_step_planes_early": ratio,
-          "torch_bench_vs_step_planes": tb_ratio, "factor": BENCH_FACTOR})
+        rate = lines[method]["value"]
+        check(np.isfinite(rate) and rate > 0,
+              f"cli bench {method}: rate {rate}")
+    emit({"phase": "tools", "step": "bench", "bench": lines})
 
 
 def tools_render(torch, tmp, latest, state, params):
     """The evolved config-4 state rendered twice on the card (equal PNG
     bytes) and once on the CPU (framebuffers within 1e-5 of their
     maximum, images within one level); the CLI renders a checkpoint.
-    Also times one render_frame (CUDA events), one save_frame and one
-    metrics.invariants (host clock): a CLI report interval's extras."""
+    Also prints one save_frame's and one metrics.invariants' host time: a
+    CLI report interval's extras."""
     import os
     from gpufluidsimulator_torch.ops import render
     from gpufluidsimulator_torch.utils import metrics
@@ -1603,7 +1105,6 @@ def tools_render(torch, tmp, latest, state, params):
     levels = int(np.abs(render.tonemap(card).astype(np.int64)
                         - render.tonemap(cpu)).max())
     check(levels <= 1, f"tonemapped card vs cpu differ by {levels} levels")
-    ms = time_ms(torch, lambda: render.render_frame(state, params), 10)
     w0 = time.perf_counter()
     metrics.invariants(state, params)
     invariants_s = time.perf_counter() - w0
@@ -1615,7 +1116,7 @@ def tools_render(torch, tmp, latest, state, params):
           "card_vs_cpu_bitwise": bitwise,
           "card_vs_cpu_max_abs": err, "card_vs_cpu_rel": err / scale,
           "tol": 1e-5, "tonemap_max_level_diff": levels,
-          "render_frame_ms": ms, "save_frame_s": save_s,
+          "save_frame_s": save_s,
           "invariants_s": invariants_s,
           "cli_render": lines[-1]})
 
@@ -1685,12 +1186,11 @@ def tools_native(ft):
           "first_use_s": build_s, "bench": last_json(lines)})
 
 
-def phase_tools(torch, ft, ft_build, state, params, step_planes_ms):
+def phase_tools(torch, ft, ft_build, state, params):
     """The user-facing entry points on the card: the CLI's run, resume,
-    bench and render, checkpoints, the renderer, scripts/torch_bench.py,
-    the debug harness and the native engine.  ``state`` is the evolved
-    config-4 state, ``params`` its parameters, ``step_planes_ms`` the
-    run_inc phase's times of step_planes by operating point."""
+    bench and render, checkpoints, the renderer, the debug harness and the
+    native engine.  ``state`` is the evolved config-4 state, ``params`` its
+    parameters."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -1702,7 +1202,7 @@ def phase_tools(torch, ft, ft_build, state, params, step_planes_ms):
         tools_resume(torch, ft, tmp, scene4, latest, saved)
         del saved
         ran.append("resume")
-        tools_bench(scene4, step_planes_ms)
+        tools_bench(scene4)
         ran.append("bench")
         tools_render(torch, tmp, latest, state, params)
         ran.append("render")
@@ -2242,15 +1742,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_env(torch, ft_build)
-    # the main paths' instantiations hold K = 8 ranks a cell, in 3D
-    lib = ft_build.library()
-    force_smem = lib.fk_force_smem(8)
-    facts = redesign_facts(ft_build.ptxas_report(ft_build.build_log["text"]),
-                           {"force": force_smem, "force_step": force_smem,
-                            "force_step_cont": force_smem,
-                            "density": lib.fk_density_smem(8),
-                            "sweep_packed": lib.fk_sweep_packed_smem()})
-    emit({"phase": "redesigned", **facts})
     phase_parity(torch, ft)
     phase_parity_inc(torch, ft)
     phase_parity_inc_cont(torch, ft)
@@ -2260,13 +1751,12 @@ def main() -> int:
     phase_run(torch, ft, ft_build, ft.scenes.double_dam_break,
               dict(n=1_000_000, dim=3), 20, "double_dam_break_3d_1197770")
     phase_gridded_run(torch, ft, ft_build)
-    state, params, counts_inc, counts_cont, step_planes_ms = \
-        phase_inc_run(torch, ft, ft_build)
-    results = phase_kernels(torch, ft, facts)
-    results_inc = phase_inc_kernels(torch, ft, state, params, facts)
-    packed, counts_packed = phase_packed_sweep(torch, ft, ft_build, state,
-                                               params, facts)
-    phase_tools(torch, ft, ft_build, state, params, step_planes_ms)
+    state, params, counts_inc, counts_cont = phase_inc_run(torch, ft,
+                                                          ft_build)
+    phase_kernels(torch, ft)
+    phase_inc_kernels(torch, ft, state, params)
+    counts_packed = phase_packed_sweep(torch, ft, ft_build, state, params)
+    phase_tools(torch, ft, ft_build, state, params)
     del state
     params4, state4 = phase_sharded_parity(torch, ft, ft_build)
     phase_slab_force(torch, ft, params4, state4)
@@ -2275,34 +1765,17 @@ def main() -> int:
     phase_sharded_tools(torch, ft)
     soak_counts = phase_acceptance(torch, ft, ft_build)
     kernels = []
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-
-    def picked(r):
-        return {k: r[k] for k in keys + DEVICE_KEYS if k in r}
     for name, (src, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces}
         if name == "sweep_packed":
-            entry.update(launches=counts_packed[name], **picked(packed))
-        elif name == "occ_rowmax":
-            # the steps launch it through occupancy_bounds: its numbers
-            # lead, the row-maxima-only call's stand beside them
-            entry.update(launches=counts[name],
-                         **picked(results["occupancy_bounds"]),
-                         launches_pallas_inc=counts_inc[name],
-                         config4=picked(results_inc["occupancy_bounds"]),
-                         row_maxima_only=picked(results[name]),
-                         row_maxima_only_config4=picked(results_inc[name]))
+            entry["launches"] = counts_packed[name]
         elif name in SLICE1:
-            entry.update(launches=counts[name], **picked(results[name]))
-            entry["launches_pallas_inc"] = counts_inc[name]
-            if name in results_inc:
-                entry["config4"] = picked(results_inc[name])
+            entry.update(launches=counts[name],
+                         launches_pallas_inc=counts_inc[name])
         else:
             run_counts = counts_cont if name in CONT else counts_inc
-            entry.update(launches=run_counts[name],
-                         **picked(results_inc[name]))
+            entry["launches"] = run_counts[name]
             if name not in CONT:
                 entry["launches_pallas_inc_cont"] = counts_cont[name]
         # launches per sharded step of config 5 on 8 slabs

@@ -166,10 +166,6 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fk_error_string.argtypes = [ctypes.c_int]
     lib.fk_error_string.restype = ctypes.c_char_p
-    lib.fk_force_smem.argtypes = [ctypes.c_int]
-    lib.fk_force_smem.restype = ctypes.c_int
-    lib.fk_density_smem.argtypes = [ctypes.c_int]
-    lib.fk_density_smem.restype = ctypes.c_int
     lib.fk_sweep_packed_smem.argtypes = []
     lib.fk_sweep_packed_smem.restype = ctypes.c_int
     lib.fk_sweep_packed_group.argtypes = []

@@ -44,7 +44,7 @@
 //
 // Measured (H100 80GB HBM3 at 700.00 W, evolved double dam break): 0.052
 // to 0.060 ms of device time a step (scripts/torch_profile_step.py),
-// 2.7 to 3.2x the bound; 0.099 ms a call end to end in chip_smoke.py
+// 2.7 to 3.2x the bound; 0.099 ms a call end to end (CUDA events)
 // against 0.109 for nonzero + index, both bound by the host's dispatch.
 #include <cstdint>
 

@@ -32,9 +32,8 @@
 // what must be read: x up to each interior cell's first sentinel rank,
 // the flag of each valid slot, the 5 other pos/vel channels and the id of
 // each kept one, two start-table entries per interior cell and the taken
-// mover rows with their sort index.  chip_smoke.py counts exactly these
-// on its data (with RHO: one more plane written, rho of each kept slot and
-// channel 7 of each taken mover read).
+// mover rows with their sort index (with RHO: one more plane written, rho
+// of each kept slot and channel 7 of each taken mover read).
 //
 // The first design ran one thread per cell through the kept loop, the
 // arrival loop and the fill loop, each writing output rank n, which

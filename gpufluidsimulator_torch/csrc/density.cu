@@ -328,13 +328,6 @@ static int launch_density(const float* pos, const FkOcc& occ, float* rho,
     return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory (bytes) of one 3D density block at cell
-// capacity k, -1 past 16; the kernel adds its static part (-Xptxas -v)
-extern "C" int fk_density_smem(int k) {
-    if (k < 1 || k > 16) return -1;
-    return fd_stage_bytes<3>();
-}
-
 // occ_q, occ_s: sph.density_planes' bounds (int32, any strides); ostr:
 // their 7 strides in elements, a host array; ring_ovf: the count of ring
 // planes that overflowed.  One block per column of FD_Z planes of a tile

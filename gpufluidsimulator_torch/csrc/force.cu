@@ -531,13 +531,6 @@ static int force_entry(const float* fields, const float* rho,
                                           st);
 }
 
-// The dynamic shared memory (bytes) of one 3D force block at cell capacity
-// k, -1 past 16; each mode's kernel adds its static part (-Xptxas -v)
-extern "C" int fk_force_smem(int k) {
-    if (k < 1 || k > 16) return -1;
-    return fk_stage_bytes<3>();
-}
-
 // occ_q, occ_s: sph.accel_planes' bounds (int32, any strides); ostr: their
 // 7 strides in elements, a host array
 extern "C" int fk_force(const float* fields, const float* rho,

@@ -382,8 +382,9 @@ packed_sweep_kernel(const float4* __restrict__ f, const int* __restrict__ cids,
         out[3 * (long long)base + q] = base + q / 3 < n ? sums[q] : 0.f;
 }
 
-// Dynamic shared memory of a block (for chip_smoke.py's report), and the
-// pruning policy that ops/mxu_sweep.py's GROUP and BOX_MARGIN restate
+// Dynamic shared memory of a block (scripts/torch_probe_packed.py's
+// report), and the pruning policy that ops/mxu_sweep.py's GROUP and
+// BOX_MARGIN restate
 extern "C" int fk_sweep_packed_smem() { return ps_smem_bytes(); }
 extern "C" int fk_sweep_packed_group() { return FK_PS_QPW; }
 extern "C" float fk_sweep_packed_box_margin() { return FK_PS_BOX_MARGIN; }

@@ -24,10 +24,10 @@ only in what they hold:
 ``occ_rowmax`` and ``occupancy_bounds`` on the same planes, by
 ``torch.profiler``'s device time: ``hot`` over ``--reps`` calls in a row
 (the x plane stays in L2), ``cold`` with L2 flushed before each call, in
-three sessions (``chip_smoke.py``'s ``cold_ms``: a ``bitwise_not_`` of a
-128 MB buffer before each call, its kernels left out of the sum); and by
-CUDA events (``event_ms``: for these short calls, the host's launch
-path).  The timing helpers are ``chip_smoke.py``'s.  Prints one JSON line
+three sessions (``cold_ms``: a ``bitwise_not_`` of a 128 MB buffer
+before each call, its kernels left out of the sum); and by CUDA events
+(``event_ms``: for these short calls, the host's launch path).  The
+timing helpers are ``scripts/torch_timing.py``'s.  Prints one JSON line
 with the card's name and power limit.  Needs a CUDA card; imports nothing
 of JAX.
 """
@@ -42,6 +42,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from scripts.torch_timing import (card_line, cold_ms, event_ms,  # noqa: E402
+                                  kernel_us)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -54,8 +57,6 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     import gpufluidsimulator_torch as ft
-    from chip_smoke import card_line, cold_ms, kernel_us
-    from chip_smoke import time_ms as event_ms
     from gpufluidsimulator_torch.ops import inc, sph
     from gpufluidsimulator_torch.ops import planes as pm
 

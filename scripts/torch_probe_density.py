@@ -46,13 +46,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from scripts.torch_probe_force import event_ms, tile_stats  # noqa: E402
+from scripts.torch_probe_force import tile_stats  # noqa: E402
+from scripts.torch_timing import card_line, event_ms  # noqa: E402
 
 
 def main() -> int:
@@ -74,9 +74,7 @@ def main() -> int:
     from gpufluidsimulator_torch.ops import inc, sph
     from gpufluidsimulator_torch.ops import planes as pm
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_line()
     name = getattr(sph, "DENSITY_RING_OVERFLOWS", None)
 
     def overflows(device):

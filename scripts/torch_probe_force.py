@@ -40,27 +40,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-
-def event_ms(torch, fn, reps: int) -> float:
-    """Mean device time of one call over ``reps`` calls after two warm-up
-    calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+from scripts.torch_timing import card_line, event_ms  # noqa: E402
 
 
 def tile_stats(torch, p6, occ_s, geom, z_planes: int, cap: int) -> dict:
@@ -164,9 +149,7 @@ def main() -> int:
     from gpufluidsimulator_torch.ops import inc, sph
     from gpufluidsimulator_torch.ops import planes as pm
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_line()
     params, state = ft.scenes.double_dam_break(n=1_000_000, dim=3)
     sim = ft.FluidSim(params, state, method="auto")
     sim.step(args.warm)

@@ -228,7 +228,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
 # and its acceptance scripts
 PORT_ALSO = ("gpufluidsimulator_torch.oracle.numpy_ref",
              "scripts.torch_accept_cont", "scripts.torch_sweep_cont_accept",
-             "scripts.torch_soak", "scripts.torch_invariants")
+             "scripts.torch_soak", "scripts.torch_invariants", "chip_smoke",
+             "scripts.torch_timing", "scripts.torch_probe_force",
+             "scripts.torch_probe_density", "scripts.torch_probe_consolidate",
+             "scripts.torch_probe_packed")
 
 
 def test_port_imports_no_jax():

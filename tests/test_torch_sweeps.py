@@ -151,8 +151,8 @@ _PTXAS = {
 @pytest.mark.parametrize("case", sorted(_PTXAS))
 def test_ptxas_report_reads_each_entry(case):
     """_build.ptxas_report, the one reader of the build's -Xptxas -v log
-    (chip_smoke.py takes the force and compact kernels' registers, spills
-    and static shared memory from it): one entry per kernel, spill stores
-    and loads summed, a missing smem figure read as 0."""
+    (chip_smoke.py prints it per kernel on its build line): one entry per
+    kernel, spill stores and loads summed, a missing smem figure read as
+    0."""
     text, want = _PTXAS[case]
     assert _build.ptxas_report(text) == want
