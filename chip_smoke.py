@@ -858,8 +858,11 @@ CONT_CASES = {"rate": dict(cont_form="rate"),
 def check_force_step(torch, got, want, p6, params, geom, what):
     """A fused force step (new6, flag) or continuity step (new6, rho, flag)
     against its plain version: positions 1e-6 and velocities 1e-4
-    (relative), rho 1e-5, every other slot equal, and mover flags equal
-    except within 1e-5 cell of a face."""
+    (relative), rho 1e-5, mover flags equal except within 1e-5 cell of a
+    face; at every slot that holds no query x the sentinel and the flag 0,
+    and in a sector (8 lanes of a rank row) that holds a query every
+    plane equal (the kernel leaves the other sectors' y, z, velocity and
+    rho, which nothing reads, unwritten: csrc/force.cu)."""
     from gpufluidsimulator_torch.ops import planes as pm
     (g6, *grho, gf), (w6, *wrho, wf) = got, want
     ok = (p6[0] < pm.SENTINEL * 0.5) \
@@ -874,7 +877,12 @@ def check_force_step(torch, got, want, p6, params, geom, what):
             near |= (u - torch.round(u)).abs() < 1e-5
     differ = (gf != wf) & ok
     bad = int((differ & ~near).sum())
-    rest_equal = torch.equal(g6[:, ~ok], w6[:, ~ok])
+    held = ok.reshape(-1, 8).any(1, keepdim=True).expand(-1, 8) \
+        .reshape(ok.shape)
+    rest = held & ~ok
+    rest_equal = (torch.equal(g6[:, rest], w6[:, rest])
+                  and bool((g6[0][~ok] == pm.SENTINEL).all())
+                  and bool((gf[~ok] == 0.0).all()))
     out = dict(rel_err_pos=rel_p, rel_err_vel=rel_v,
                tol={"pos": 1e-6, "vel": 1e-4},
                flags_differ_near_face=int(differ.sum()))
@@ -882,13 +890,13 @@ def check_force_step(torch, got, want, p6, params, geom, what):
     if grho:
         err_r, rel_r = rel_err(grho[0][ok], wrho[0][ok])
         err = max(err, err_r)
-        rest_equal &= torch.equal(grho[0][~ok], wrho[0][~ok])
+        rest_equal &= torch.equal(grho[0][rest], wrho[0][rest])
         out.update(rel_err_rho=rel_r, tol={"pos": 1e-6, "vel": 1e-4,
                                            "rho": 1e-5})
     check(rel_p <= 1e-6 and rel_v <= 1e-4 and rel_r <= 1e-5 and bad == 0
           and rest_equal,
           f"{what}: pos rel {rel_p}, vel rel {rel_v}, rho rel {rel_r}, "
-          f"{bad} flags differ away from a face, other slots equal "
+          f"{bad} flags differ away from a face, fill contract held "
           f"{rest_equal}")
     out["max_abs_err"] = err
     return out

@@ -19,14 +19,25 @@
 //   a     += coef_p d + coef_v v_c,  sv += coef_v;   a -= v_q sv at the end
 // over the 3^d neighbour cells' valid ranks, in the order dz, dy, dx, rank
 // (the self pair cancels: d = 0 and its viscosity term is removed by the
-// -v_q sv finish).  Every other slot gets 0, or the sentinel on the fused
-// step's position planes (the TPU kernel leaves it undefined).
+// -v_q sv finish).  Every other slot gets 0 in plain mode.  The fused
+// steps define at every other slot only what a reader reads there (the
+// TPU kernel leaves all of it undefined): x gets the sentinel and the
+// flag 0 at every slot, since compact reads the flag whole and consolidate
+// reads x (and the flag where x is valid) up to each interior cell's first
+// sentinel rank; y, z, the velocities (and rho) get the sentinel or 0 only
+// in the 32-byte sectors (8 lanes of a rank row) that hold a query, so no
+// sector is written in part, and are left undefined in the others: compact
+// reads them only at flagged slots and consolidate only at kept ones, both
+// queries.  force_fill_skipped counts the sectors left (sph.FILL_SKIPPED).
 //
-// Bound on the H100: bytes.  Every slot of the 3 (plain), 7 (fused) or 8
-// (continuity) output planes is written once: 7 * K * cells * 4 B = 411 MB
-// at the 1,197,770-particle double dam break (0.123 ms at 3.35 TB/s), well
-// above the pair arithmetic (32 to 49 float32 operations for each of 6.9e7
-// candidate pairs, 0.03 to 0.05 ms at 67 TFLOP/s).
+// Bound on the H100: bytes.  Every slot of the 3 planes of plain mode is
+// written once: 3 * K * cells * 4 B = 176 MB at the 1,197,770-particle
+// double dam break.  The fused steps write 2 planes at every slot, 118 MB
+// there, and the other 5 (6 with rho) in the sectors that hold a query,
+// 14% of them on the evolved scene (force_fill_skipped reads 86.0%; 87.8%
+// at 4,825,800 particles), 17 MB more at their empty slots: 0.04 ms at
+// 3.35 TB/s, about the pair arithmetic (32 to 49 float32 operations for
+// each of 6.9e7 candidate pairs, 0.03 to 0.05 ms at 67 TFLOP/s).
 //
 // The first design (one thread per cell, its valid query ranks in KMAX
 // register slots, the 27 neighbour cells walked serially) ran 14 to 18x
@@ -63,7 +74,11 @@
 // 576 slots a plane (640: +4%, a ring that leaves the loads less L1; at
 // 576, 22 of the scene's planes a launch take windows), cell-major queries
 // (rank-major: +4%) and a pair loop unrolled twice (not unrolled: +4%;
-// four times: +3%).
+// four times: +3%).  The fused steps' fill takes 4 lanes a thread with
+// float4 stores (tile.cuh fk_tile_fill4): a lane a thread with a ballot a
+// run took force_step 1.637 to 1.647 ms on the evolved 4,825,800-particle
+// scene against 1.590 (0.434 against 0.429 at 1,197,770); skipping every
+// empty lane, so that sectors are written in part, took 1.609 (0.427).
 #include "ring.cuh"
 
 #define FK_MAX_OBS 4
@@ -117,11 +132,13 @@ struct FkStep {
 // and the epilogue writes rho_new = rho_q + drho_scale sr (rate, delta),
 // one_m_l (rho_q + drho_scale sr) (relax) or rho_sum_scale sr (sum), from
 // the query's RAW carried rho_q (the EOS alone reads max(rho, 1e-3 rho0)),
-// and 0 on every other slot.  The self pair stays in the loop: it adds h^6
-// to sum and relax, and cancels in delta only above the EOS floor.
+// and 0 on the other slots of the sectors that hold a query (rho, like y,
+// is left undefined in the others: the note at the top).  The self pair
+// stays in the loop: it adds h^6 to sum and relax, and cancels in delta
+// only above the EOS floor.
 //
-// Bound on the H100: bytes, as kernel 4b, plus one more output plane (8 *
-// K * cells * 4 B = 470 MB at the 1,197,770-particle double dam break); the
+// Bound on the H100: bytes, as kernel 4b, plus one more output plane
+// written where y is (4 B a slot of the sectors that hold a query); the
 // default form (rate, cont_beta > 0) adds 17 operations to the pair's 32.
 // Design: the form is a template parameter, so the default pays neither
 // for delta's per-query factor nor for the other forms' branches; rho_q is
@@ -225,12 +242,13 @@ __device__ __forceinline__ int fk_cell_of(float x, float base, float inv,
 // (pallas_sph.py:530-587).  The planes come out UNBLANKED: a mover keeps
 // its slot, flagged, so the compaction reads it straight out of new6.
 //
-// Bound on the H100 (fused mode): the 7 output planes (6 + flag) written
-// once, 7 * K * cells * 4 B = 411 MB at the 1,197,770-particle double dam
-// break, plus the 7 inputs read at the valid slots only (0.135 ms in all) —
-// bytes, well above the pair arithmetic.  Design: the epilogue runs in the
-// registers of the thread that holds the query, so the acceleration never
-// touches memory; every slot is written, so nothing is left undefined.
+// Bound on the H100 (fused mode): the x and flag planes written at every
+// slot, the other 5 in the sectors that hold a query (the note at the
+// top), plus the 7 inputs read at the valid slots only — bytes, about the
+// pair arithmetic's time.  Design: the epilogue runs in the registers of
+// the thread that holds the query, so the acceleration never touches
+// memory; it writes every plane at its query's slot, which with the fill
+// defines every slot of a sector that holds a query.
 template <int DIM>
 __device__ __forceinline__ void force_step_epilogue(
         float qx, float qy, float qz, float qvx, float qvy, float qvz,
@@ -285,24 +303,54 @@ __device__ __forceinline__ void fk_fill(float* out, float* flag,
     }
 }
 
+// The fused step's 4 slots s0 .. s0 + 3 that hold no query, float4 stores
+// (the planes are 16-byte aligned, s0 a multiple of 4): the sentinel x and
+// flag 0, and where their sector holds a query (held) the sentinel y, z,
+// velocity 0 (and rho 0); elsewhere those planes are left (the note at the
+// top).
+template <int CONT>
+__device__ __forceinline__ void fk_fill4(float* out, float* flag,
+                                         float* rho_out, long long s0,
+                                         long long ch, bool held) {
+    const float4 sent = make_float4(FK_SENTINEL, FK_SENTINEL, FK_SENTINEL,
+                                    FK_SENTINEL);
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const auto at = [&](float* p, long long o) {
+        return reinterpret_cast<float4*>(p + o + s0);
+    };
+    *at(out, 0) = sent;
+    *at(flag, 0) = zero;
+    if (!held) return;
+    *at(out, ch) = sent;
+    *at(out, 2 * ch) = sent;
+    *at(out, 3 * ch) = zero;
+    *at(out, 4 * ch) = zero;
+    *at(out, 5 * ch) = zero;
+    if constexpr (CONT != FK_CONT_NONE) *at(rho_out, 0) = zero;
+}
+
 // One block per column of FK_Z planes of a tile of FK_TILE_ROWS rows x 32
 // lanes (see the note at the top and csrc/ring.cuh).  Dynamic shared
 // memory: 2 * FK_CAP float4 a ring plane, the staged (x, y, z, pterm) and
 // (vx, vy, vz, ir) of its compacted slots; FR_RING planes in 3D, one in
-// 2D.  ring_ovf: the count of ring planes that overflowed.
+// 2D.  ring_ovf: the count of ring planes that overflowed.  fill_ctr (the
+// fused modes): += the sectors the fill left unwritten, the sectors it
+// visited (two 64-bit counts; one atomic each a block).
 template <int KMAX, int DIM, bool FUSE, int CONT>
 __global__ void __launch_bounds__(FK_THREADS, FK_MIN_BLOCKS)
 force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
              FkOcc occ, float* __restrict__ acc_out,
              float* __restrict__ flag_out, float* __restrict__ rho_out,
-             int* __restrict__ ring_ovf, FkGeom g, float h, FkEos e,
-             FkStep st, FkCont ct) {
+             int* __restrict__ ring_ovf,
+             unsigned long long* __restrict__ fill_ctr, FkGeom g, float h,
+             FkEos e, FkStep st, FkCont ct) {
     constexpr int CAP = FK_CAP;
     extern __shared__ float4 fk_stage[];
     float4* s_a = fk_stage;
     float4* s_b = fk_stage + (DIM == 3 ? FR_RING : 1) * CAP;
     __shared__ FrRing ring;
     __shared__ FkQueries<KMAX> sq;
+    __shared__ int fill_skipped;   // the block's sectors left (fused modes)
 
     const long long cells = g.cells;
     const long long ch = (long long)g.k * cells;   // channel stride
@@ -327,6 +375,7 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
     };
 
     const FrColumn col = fr_column<FK_Z>(g);
+    if (FUSE && threadIdx.x == 0) fill_skipped = 0;
     // the ring holds the planes lo .. hi (none while hi < lo), plane p in
     // ring slot p % FR_RING (block-uniform)
     int lo = 0, hi = -1;
@@ -334,9 +383,19 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
         __syncthreads();          // the last plane's readers are done
         const FkTile t = fr_tile<DIM>(g, occ, col, z);
         const int nq = fk_tile_queries<KMAX, DIM>(X, g, t, occ, sq);
-        fk_tile_fill<KMAX>(g, t, sq, [&](long long s) {
+        const auto fill = [&](long long s) {
             fk_fill<FUSE, CONT>(acc_out, flag_out, rho_out, s, ch);
-        });
+        };
+        if constexpr (FUSE) {
+            const int skipped = fk_tile_fill4<KMAX>(
+                g, t, sq, [&](long long s0, bool held) {
+                    fk_fill4<CONT>(acc_out, flag_out, rho_out, s0, ch, held);
+                }, fill);
+            if ((threadIdx.x & 31) == 0 && skipped != 0)
+                atomicAdd(&fill_skipped, skipped);
+        } else {
+            fk_tile_fill<KMAX>(g, t, sq, fill);
+        }
         if (nq == 0) continue;
         // stage the neighbour planes the ring lacks, lowest first
         for (int dz = (DIM == 3 ? -1 : 0); dz <= (DIM == 3 ? 1 : 0); ++dz) {
@@ -474,6 +533,14 @@ force_kernel(const float* __restrict__ fields, const float* __restrict__ rho,
             }
         }
     }
+    if constexpr (FUSE) {
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            atomicAdd(fill_ctr, (unsigned long long)fill_skipped);
+            atomicAdd(fill_ctr + 1, (unsigned long long)(col.z1 - col.z0)
+                          * FK_TILE_ROWS * g.k * (FK_TILE_LANES / 8));
+        }
+    }
 }
 
 // Dynamic shared memory of one block: two float4 per slot of each ring
@@ -486,7 +553,8 @@ constexpr int fk_stage_bytes() {
 template <int KMAX, int DIM, bool FUSE, int CONT>
 static int launch_force(const float* fields, const float* rho,
                         const FkOcc& occ, float* out, float* flag,
-                        float* rho_out, int* ring_ovf, const FkGeom& g,
+                        float* rho_out, int* ring_ovf,
+                        unsigned long long* fill_ctr, const FkGeom& g,
                         float h, const FkEos& e, const FkStep& s,
                         const FkCont& ct, cudaStream_t st) {
     constexpr int bytes = fk_stage_bytes<DIM>();
@@ -497,7 +565,8 @@ static int launch_force(const float* fields, const float* rho,
     if (err != cudaSuccess) return (int)err;
     force_kernel<KMAX, DIM, FUSE, CONT>
         <<<(unsigned)fr_blocks<FK_Z>(g), FK_THREADS, bytes, st>>>(
-            fields, rho, occ, out, flag, rho_out, ring_ovf, g, h, e, s, ct);
+            fields, rho, occ, out, flag, rho_out, ring_ovf, fill_ctr, g, h,
+            e, s, ct);
     return (int)cudaGetLastError();
 }
 
@@ -507,7 +576,8 @@ static int launch_force(const float* fields, const float* rho,
 template <bool FUSE, int CONT>
 static int force_entry(const float* fields, const float* rho,
                        const FkOcc& occ, float* out, float* flag,
-                       float* rho_out, int* ring_ovf, const FkGeom& g,
+                       float* rho_out, int* ring_ovf,
+                       unsigned long long* fill_ctr, const FkGeom& g,
                        float h, const FkEos& e, const FkStep& s,
                        const FkCont& ct, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
@@ -517,18 +587,18 @@ static int force_entry(const float* fields, const float* rho,
     if (g.k <= 8)
         return g.dim == 3
             ? launch_force<8, 3, FUSE, CONT>(fields, rho, occ, out, flag,
-                                             rho_out, ring_ovf, g, h, e, s,
-                                             ct, st)
+                                             rho_out, ring_ovf, fill_ctr, g,
+                                             h, e, s, ct, st)
             : launch_force<8, 2, FUSE, CONT>(fields, rho, occ, out, flag,
-                                             rho_out, ring_ovf, g, h, e, s,
-                                             ct, st);
+                                             rho_out, ring_ovf, fill_ctr, g,
+                                             h, e, s, ct, st);
     return g.dim == 3
         ? launch_force<16, 3, FUSE, CONT>(fields, rho, occ, out, flag,
-                                          rho_out, ring_ovf, g, h, e, s, ct,
-                                          st)
+                                          rho_out, ring_ovf, fill_ctr, g, h,
+                                          e, s, ct, st)
         : launch_force<16, 2, FUSE, CONT>(fields, rho, occ, out, flag,
-                                          rho_out, ring_ovf, g, h, e, s, ct,
-                                          st);
+                                          rho_out, ring_ovf, fill_ctr, g, h,
+                                          e, s, ct, st);
 }
 
 // occ_q, occ_s: sph.accel_planes' bounds (int32, any strides); ostr: their
@@ -547,7 +617,7 @@ extern "C" int fk_force(const float* fields, const float* rho,
                   clamp, m_spiky, m_visc_sqrt};
     return force_entry<false, FK_CONT_NONE>(
         fields, rho, fk_occ_from(occ_q, occ_s, ostr), out, nullptr, nullptr,
-        ring_ovf, g, h, e, FkStep{}, FkCont{}, stream);
+        ring_ovf, nullptr, g, h, e, FkStep{}, FkCont{}, stream);
 }
 
 // FkStep from the host float array of sph._step_args: dt, -restitution,
@@ -578,11 +648,12 @@ static FkStep fk_step_from(const float* step, int n_obs) {
     return s;
 }
 
+// fill_ctr: two int64 counts the fill adds to (force_kernel)
 extern "C" int fk_force_step(const float* fields, const float* rho,
                              const int* occ_q, const int* occ_s,
                              const long long* ostr, float* new6, float* flag,
-                             int* ring_ovf, int dim, int k, int nx, int ny,
-                             int nz,
+                             int* ring_ovf, long long* fill_ctr, int dim,
+                             int k, int nx, int ny, int nz,
                              int n_bx, int py, int pz, long long cells,
                              float h, float rho0, float rho_floor,
                              float stiffness, int tait, float tait_b,
@@ -595,7 +666,8 @@ extern "C" int fk_force_step(const float* fields, const float* rho,
                   clamp, m_spiky, m_visc_sqrt};
     return force_entry<true, FK_CONT_NONE>(
         fields, rho, fk_occ_from(occ_q, occ_s, ostr), new6, flag, nullptr,
-        ring_ovf, g, h, e, fk_step_from(step, n_obs), FkCont{}, stream);
+        ring_ovf, (unsigned long long*)fill_ctr, g, h, e,
+        fk_step_from(step, n_obs), FkCont{}, stream);
 }
 
 // rho: the CARRIED density (halo lanes refreshed); rho_out: next step's.
@@ -605,7 +677,8 @@ extern "C" int fk_force_step_cont(const float* fields, const float* rho,
                                   const int* occ_q, const int* occ_s,
                                   const long long* ostr, float* new6,
                                   float* rho_out, float* flag,
-                                  int* ring_ovf, int dim, int k, int nx,
+                                  int* ring_ovf, long long* fill_ctr,
+                                  int dim, int k, int nx,
                                   int ny, int nz, int n_bx, int py, int pz,
                                   long long cells, float h,
                                   float rho0, float rho_floor,
@@ -624,23 +697,24 @@ extern "C" int fk_force_step_cont(const float* fields, const float* rho,
                     cont[6], cont[7], cont[8], cont[9], cont[10],
                     use_corr, use_alpha};
     const FkOcc occ = fk_occ_from(occ_q, occ_s, ostr);
+    unsigned long long* fc = (unsigned long long*)fill_ctr;
     switch (form) {
         case FK_CONT_RATE:
             return force_entry<true, FK_CONT_RATE>(
-                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
-                ct, stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, fc, g, h, e,
+                s, ct, stream);
         case FK_CONT_RELAX:
             return force_entry<true, FK_CONT_RELAX>(
-                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
-                ct, stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, fc, g, h, e,
+                s, ct, stream);
         case FK_CONT_SUM:
             return force_entry<true, FK_CONT_SUM>(
-                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
-                ct, stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, fc, g, h, e,
+                s, ct, stream);
         case FK_CONT_DELTA:
             return force_entry<true, FK_CONT_DELTA>(
-                fields, rho, occ, new6, flag, rho_out, ring_ovf, g, h, e, s,
-                ct, stream);
+                fields, rho, occ, new6, flag, rho_out, ring_ovf, fc, g, h, e,
+                s, ct, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -10,9 +10,12 @@
 // cell-major with a lane scan, so threads of one cell share its neighbours
 // (fk_tile_queries); meanwhile one more warp loads the tile's occ_s for
 // the sweep.  Every slot that holds no
-// query is written by one coalesced sweep (fk_tile_fill).  A tile whose
-// occ_q is 0, or that holds no interior row, has no query, so it only
-// fills.  What a fill writes is the kernels' own (a functor).
+// query is written by one coalesced sweep: fk_tile_fill a lane a thread
+// (plain mode), fk_tile_fill4 four lanes a thread (the fused steps, which
+// also need to know whether a slot's 32-byte sector, 8 lanes of a rank
+// row, holds a query).  A tile whose occ_q is 0, or that holds no
+// interior row, has no query, so it only fills.  What a fill writes is
+// the kernels' own (functors).
 #pragma once
 
 #include "common.cuh"
@@ -137,6 +140,48 @@ __device__ __forceinline__ void fk_tile_fill(const FkGeom& g, const FkTile& t,
         if (r >= sq.n[rr][l])
             fill(r * g.cells + t.base + rr * FK_LANES + l);
     }
+}
+
+// The same slots four lanes (16 B of a plane) a thread: 8 threads a (row,
+// rank) run of 32 lanes, 4 runs a warp a trip (the loop's bound and
+// stride are multiples of 32, so a warp's lanes take the same trips).
+// fill4(slot0, held) where none of the 4 lanes slot0 .. slot0 + 3 holds a
+// query, fill(slot) for each lane without one where some do; held: the
+// 4 lanes' sector (theirs and the neighbouring thread's 4) holds a query.
+// Returns the sectors without a query that the calling thread's warp
+// visited (the same in each of its lanes).  The slots of a run start at a
+// multiple of 32, so a plane 16-byte aligned takes fill4's float4 stores.
+template <int KMAX, class Fill4, class Fill>
+__device__ __forceinline__ int fk_tile_fill4(const FkGeom& g,
+                                             const FkTile& t,
+                                             const FkQueries<KMAX>& sq,
+                                             Fill4 fill4, Fill fill) {
+    static_assert(FK_THREADS % 32 == 0 && FK_TILE_ROWS * 8 % 32 == 0
+                  && FK_TILE_LANES == 32,
+                  "a warp takes whole runs, a sector two neighbour lanes");
+    const int k = g.k;
+    int empty = 0;
+    for (int i = threadIdx.x; i < FK_TILE_ROWS * k * 8; i += FK_THREADS) {
+        const int rr = (i >> 3) / k;
+        const int r = (i >> 3) - rr * k;
+        const int l0 = (i & 7) * 4;
+        const int* n = sq.n[rr] + l0;
+        const unsigned mine = (unsigned)(r < n[0])
+            | (unsigned)(r < n[1]) << 1 | (unsigned)(r < n[2]) << 2
+            | (unsigned)(r < n[3]) << 3;
+        const bool held =
+            (mine | __shfl_xor_sync(0xffffffffu, mine, 1)) != 0u;
+        empty += __popc(__ballot_sync(0xffffffffu, !held && !(i & 1)));
+        const long long s0 = r * g.cells + t.base + rr * FK_LANES + l0;
+        if (mine == 0u) {
+            fill4(s0, held);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (!(mine >> j & 1u)) fill(s0 + j);
+        }
+    }
+    return empty;
 }
 
 // Query j < nq of the tile: its tile row qr, lane l and slot s

@@ -37,6 +37,12 @@ MAX_KERNEL_K = 16
 # the CPU
 RING_OVERFLOWS = "force_ring_overflows"
 DENSITY_RING_OVERFLOWS = "density_ring_overflows"
+# the record's counters of the fused force steps' fill (csrc/force.cu): the
+# sectors (8 lanes of one rank row) whose y, z, velocity and rho it left
+# unwritten, since they hold no query, and the sectors it visited, every
+# sector of the planes; 0 on the CPU, whose plain versions write them all
+FILL_SKIPPED = "force_fill_skipped"
+FILL_SECTORS = "force_fill_sectors"
 _ring_counters = {}    # (counter, device) -> its kernels' running count
 
 
@@ -86,20 +92,25 @@ def _occ_args(occ_q, occ_s):
             ctypes.cast(strides, ctypes.c_void_p)]
 
 
-def _ring_counter(device: torch.device,
-                  name: str = RING_OVERFLOWS) -> torch.Tensor:
-    """The int32 counter a sweep kernel adds its ring-plane overflows to
-    (``name``: the force kernels' or the density sweep's): a fresh one
-    inside a recorded call (``_tally_ring`` adds it to the call's record),
-    else the device's running count (``ring_overflows``).  The kernels
-    touch it only on an overflow."""
+def _ring_counter(device: torch.device, name: str = RING_OVERFLOWS,
+                  size: int = 1, dtype=torch.int32) -> torch.Tensor:
+    """The ``size`` counts a kernel adds to (``name``: the force kernels'
+    or the density sweep's ring-plane overflows, int32, touched only on an
+    overflow; the fused force steps' fill, ``FILL_SKIPPED``, two int64): a
+    fresh one inside a recorded call (``_tally_ring`` / ``_tally_fill``
+    add it to the call's record), else the device's running count
+    (``ring_overflows``, ``fill_sectors``)."""
     if profiling.recording():
-        return torch.zeros(1, dtype=torch.int32, device=device)
+        return torch.zeros(size, dtype=dtype, device=device)
     key = (name, device)
     if key not in _ring_counters:
-        _ring_counters[key] = torch.zeros(1, dtype=torch.int32,
-                                          device=device)
+        _ring_counters[key] = torch.zeros(size, dtype=dtype, device=device)
     return _ring_counters[key]
+
+
+def _fill_counter(device: torch.device) -> torch.Tensor:
+    """The fused force steps' (skipped, visited) sectors (``_ring_counter``)."""
+    return _ring_counter(device, FILL_SKIPPED, 2, torch.int64)
 
 
 def _tally_ring(counter: torch.Tensor, name: str = RING_OVERFLOWS) -> None:
@@ -108,17 +119,35 @@ def _tally_ring(counter: torch.Tensor, name: str = RING_OVERFLOWS) -> None:
     profiling.tally((name,), counter[0])
 
 
+def _tally_fill(counter: torch.Tensor) -> None:
+    profiling.tally((FILL_SKIPPED, FILL_SECTORS), counter[0], counter[1])
+
+
+def _running(device, name: str):
+    """The running count ``name`` on ``device`` (None before its first
+    launch outside a recorded call)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _ring_counters.get((name, device))
+
+
 def ring_overflows(device, name: str = RING_OVERFLOWS) -> int:
     """The ring planes on ``device`` that overflowed (more valid slots
     than a ring plane holds), in launches made while no profiler session
     recorded (a recorded call counts its own): the force kernels'
     (``RING_OVERFLOWS``) or the density sweep's
     (``DENSITY_RING_OVERFLOWS``)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    counter = _ring_counters.get((name, device))
+    counter = _running(device, name)
     return 0 if counter is None else int(counter[0])
+
+
+def fill_sectors(device):
+    """(skipped, visited): the sectors the fused force steps' fill left
+    unwritten and those it visited on ``device``, in launches made while
+    no profiler session recorded (a recorded call counts its own)."""
+    counter = _running(device, FILL_SKIPPED)
+    return (0, 0) if counter is None else tuple(counter.tolist())
 
 
 def _geom_args(geom: PlaneGeom):
@@ -483,10 +512,16 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     ``accel_step_plain``, also for a sharded slab's ``x_origin`` and
     ``wall_params``): the CUDA kernel ``force_step`` on the card, the plain
     version for CPU tensors.  ``rho_planes`` must carry refreshed halo
-    lanes."""
+    lanes.  The kernel defines at a slot that holds no query only what
+    ``compact`` and ``consolidate`` read there: the sentinel x and flag 0
+    everywhere, the other planes in the 32-byte sectors (8 lanes of a rank
+    row) that hold a query; the plain version defines every slot.  Its
+    fill's sectors count as ``FILL_SKIPPED`` / ``FILL_SECTORS``."""
     ring = _ring_counter(field_planes.device)
+    fill = _fill_counter(field_planes.device)
     if field_planes.device.type == "cpu":
         _tally_ring(ring)
+        _tally_fill(fill)
         return accel_step_plain(field_planes, rho_planes, params, geom,
                                 x_origin, wall_params)
     shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
@@ -499,11 +534,12 @@ def accel_step(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     _build.launch("force_step", field_planes,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
                   *_occ_args(occ_q, occ_s), _build.ptr(new6),
-                  _build.ptr(flagp), _build.ptr(ring), *_geom_args(geom),
-                  *_eos_args(params),
+                  _build.ptr(flagp), _build.ptr(ring), _build.ptr(fill),
+                  *_geom_args(geom), *_eos_args(params),
                   ctypes.cast(step, ctypes.c_void_p),
                   ctypes.c_int(len((wall_params or params).obstacles)))
     _tally_ring(ring)
+    _tally_fill(fill)
     return new6, flagp
 
 
@@ -582,10 +618,13 @@ def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
     """The fused force step of the continuity tier (see
     ``accel_step_cont_plain``): the CUDA kernel ``force_step_cont`` on the
     card, the plain version for CPU tensors.  ``rho_planes`` is the carried
-    density with refreshed halo lanes."""
+    density with refreshed halo lanes.  rho_new is defined where
+    ``accel_step`` defines y, z and the velocities."""
     ring = _ring_counter(field_planes.device)
+    fill = _fill_counter(field_planes.device)
     if field_planes.device.type == "cpu":
         _tally_ring(ring)
+        _tally_fill(fill)
         return accel_step_cont_plain(field_planes, rho_planes, params, geom,
                                      x_origin, wall_params)
     shape = _check_step_inputs(field_planes, rho_planes, occ_q, occ_s,
@@ -599,11 +638,12 @@ def accel_step_cont(field_planes: torch.Tensor, rho_planes: torch.Tensor,
                   _build.ptr(field_planes), _build.ptr(rho_planes),
                   *_occ_args(occ_q, occ_s), _build.ptr(new6),
                   _build.ptr(rho_new), _build.ptr(flagp), _build.ptr(ring),
-                  *_geom_args(geom),
+                  _build.ptr(fill), *_geom_args(geom),
                   *_eos_args(params), ctypes.cast(step, ctypes.c_void_p),
                   ctypes.c_int(len((wall_params or params).obstacles)),
                   *_cont_args(params))
     _tally_ring(ring)
+    _tally_fill(fill)
     return new6, rho_new, flagp
 
 

@@ -29,10 +29,13 @@ rebuild ``pallas.binning``, ``pallas.density``, ``pallas.force``,
 binning's and ``consolidate``'s drops), ``force_ring_overflows`` and
 ``density_ring_overflows`` (the force kernels' and the density sweep's
 staged planes past their ring's capacity, ``sph.RING_OVERFLOWS`` and
-``sph.DENSITY_RING_OVERFLOWS``), ``seam_movers`` (the movers whose arrival
-cell lies in another x tile than the slot they left, ``inc.seam_movers``;
-0 on planes of one tile); ``drops_mover_capacity`` is ``flagged -
-movers``.  A call also holds its steps (the count of its step
+``sph.DENSITY_RING_OVERFLOWS``), ``force_fill_skipped`` and
+``force_fill_sectors`` (the sectors of 8 lanes of a rank row that the
+fused force steps' fill left unwritten, holding no query, and those it
+visited: ``sph.FILL_SKIPPED``, ``sph.FILL_SECTORS``), ``seam_movers`` (the
+movers whose arrival cell lies in another x tile than the slot they left,
+``inc.seam_movers``; 0 on planes of one tile); ``drops_mover_capacity``
+is ``flagged - movers``.  A call also holds its steps (the count of its step
 spans) and its launches of each hand-written kernel
 (``_build.launches``).
 """
@@ -288,7 +291,8 @@ def format_calls(entries: List[dict]) -> List[str]:
     """Lines of text for ``calls()``' entries: per call each span's count,
     host ms and self ms, the movers a step (and those across an x tile
     seam), the drops by cause, the force kernels' and the density sweep's
-    ring overflows and the launches by kernel."""
+    ring overflows, the sectors the force steps' fill skipped and the
+    launches by kernel."""
     lines = []
     for i, e in enumerate(entries):
         lines.append(f"call {i}: {e['name']}, {e['steps']} steps")
@@ -312,6 +316,11 @@ def format_calls(entries: List[dict]) -> List[str]:
             if f"{sweep}_ring_overflows" in c:
                 lines.append(f"  {sweep} ring overflows "
                              f"{c[f'{sweep}_ring_overflows']}")
+        if "force_fill_sectors" in c:
+            skipped, seen = c["force_fill_skipped"], c["force_fill_sectors"]
+            share = f" ({100.0 * skipped / seen:.2f}%)" if seen else ""
+            lines.append(f"  force fill skipped {skipped} of {seen} "
+                         f"sectors{share}")
         if e["launches"]:
             lines.append("  launches: " + ", ".join(
                 f"{k} {v}" for k, v in sorted(e["launches"].items())))

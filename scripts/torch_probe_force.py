@@ -1,10 +1,15 @@
 """Split the rank-plane force kernels' time on the card by what a tile does.
 
-    python3 scripts/torch_probe_force.py [--warm 2000] [--reps 20]
+    python3 scripts/torch_probe_force.py [--scene 1m|5m] [--warm N]
+        [--reps 20]
 
-Evolves config 4 (``double_dam_break(n=1_000_000, dim=3)``, 1,197,770
-particles) through ``FluidSim(method="auto")`` for ``--warm`` steps, builds
-its planes as the incremental step does, and times ``accel_planes``
+Evolves config 4 (``--scene 1m``, ``double_dam_break(n=1_000_000,
+dim=3)``, 1,197,770 particles; 2,000 steps unless ``--warm``) or config 5
+(``--scene 5m``, ``double_dam_break(n=4_000_000, dim=3)``, 4,825,800
+particles on planes two x tiles wide; 3,175 steps) through
+``FluidSim(method="auto")``: the states the benchmark's ``ddb3d_1m`` and
+``ddb3d_5m`` cells start their calls from.  It builds the planes as the
+incremental step does, and times ``accel_planes``
 (``force``), ``accel_step`` (``force_step``) and ``accel_step_cont``
 (``force_step_cont``) with CUDA events, each with three sets of occupancy
 bounds:
@@ -17,7 +22,10 @@ bounds:
 
 The kernels are the committed ones; only their inputs change.  So
 ``full - no_stage`` is the staging and the pair loop together and
-``no_stage - fill_only`` the queries' loads and epilogue.
+``no_stage - fill_only`` the queries' loads and epilogue.  ``fill`` gives,
+for the fused steps, the sectors (8 lanes of a rank row) a launch's fill
+visited and those it skipped, holding no query
+(``sph.fill_sectors``; null on a tree without it).
 
 From the same planes, ``tiles`` counts what the staging has to do (by
 PyTorch, on the planes, independent of any kernel): the histogram of
@@ -133,7 +141,9 @@ def tile_stats(torch, p6, occ_s, geom, z_planes: int, cap: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--warm", type=int, default=2000)
+    ap.add_argument("--scene", choices=("1m", "5m"), default="1m")
+    ap.add_argument("--warm", type=int, default=None,
+                    help="steps before the planes (1m: 2000, 5m: 3175)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--z", type=int, default=2,
                     help="planes a column marches (csrc/force.cu FK_Z)")
@@ -150,9 +160,11 @@ def main() -> int:
     from gpufluidsimulator_torch.ops import planes as pm
 
     card = card_line()
-    params, state = ft.scenes.double_dam_break(n=1_000_000, dim=3)
+    n, warm = {"1m": (1_000_000, 2000), "5m": (4_000_000, 3175)}[args.scene]
+    warm = warm if args.warm is None else args.warm
+    params, state = ft.scenes.double_dam_break(n=n, dim=3)
     sim = ft.FluidSim(params, state, method="auto")
-    sim.step(args.warm)
+    sim.step(warm)
     state = sim.state
     geom = pm.geometry(params)
     p6 = pm.halo_x(inc.to_planes(state.pos, state.vel, state.ids, params,
@@ -166,19 +178,33 @@ def main() -> int:
     kernels = {"force": sph.accel_planes, "force_step": sph.accel_step,
                "force_step_cont": sph.accel_step_cont}
     count = getattr(sph, "ring_overflows", None)
+    sectors = getattr(sph, "fill_sectors", None)
     before = count(p6.device) if count else None
-    ms = {name: {label: event_ms(torch, lambda: fn(p6, rho, q, s, params,
-                                                   geom), args.reps)
-                 for label, (q, s) in bounds.items()}
-          for name, fn in kernels.items()}
+    ms, fill = {}, {}
+    for name, fn in kernels.items():
+        ms[name], fill[name] = {}, {}
+        for label, (q, s) in bounds.items():
+            was = sectors(p6.device) if sectors else None
+            ms[name][label] = event_ms(torch, lambda: fn(
+                p6, rho, q, s, params, geom), args.reps)
+            if sectors is None or name == "force":
+                fill[name][label] = None
+                continue
+            skipped, seen = (b - a for a, b in zip(was, sectors(p6.device)))
+            calls = args.reps + 2
+            fill[name][label] = {
+                "force_fill_skipped": skipped // calls,
+                "sectors": seen // calls,
+                "skipped_share": skipped / seen if seen else None}
     launches = 3 * (args.reps + 2)          # per kernel with true bounds
     tiles = tile_stats(torch, p6, occ_s, geom, args.z, args.cap)
     tiles["ring_overflows"] = (count(p6.device) - before) if count else None
     tiles["ring_overflows_per_launch"] = (
         tiles["ring_overflows"] / launches if count else None)
-    print(json.dumps({"card": card, "particles": state.n,
-                      "steps_before": args.warm, "reps": args.reps,
-                      "ms": ms, "tiles": tiles}), flush=True)
+    print(json.dumps({"card": card, "scene": args.scene,
+                      "particles": state.n, "steps_before": warm,
+                      "reps": args.reps, "ms": ms, "fill": fill,
+                      "tiles": tiles}), flush=True)
     return 0
 
 

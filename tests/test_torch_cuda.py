@@ -430,12 +430,25 @@ def _inc_inputs(params, state, device):
     return geom, s, p6, rho, occ_q, occ_s
 
 
+def _sector_held(query):
+    """Per slot: whether its 32-byte sector (8 lanes of its rank row)
+    holds a query."""
+    return query.reshape(-1, 8).any(1, keepdim=True).expand(-1, 8) \
+        .reshape(query.shape)
+
+
 def _check_force_step(new6, flagp, new6_p, flag_p, params, p6, geom):
+    """The fill's contract (csrc/force.cu): at a slot that holds no query,
+    x is the sentinel and the flag 0, and in a sector that holds a query
+    every plane equals the plain version's."""
     valid = (p6[0] < pm.SENTINEL * 0.5) & \
         pm.interior_mask(geom, p6.device)[None]
     assert _rel(new6[:3, valid], new6_p[:3, valid]) <= 1e-6
     assert _rel(new6[3:, valid], new6_p[3:, valid]) <= 1e-4
-    assert torch.equal(new6[:, ~valid], new6_p[:, ~valid])
+    assert bool((new6[0][~valid] == pm.SENTINEL).all())
+    assert bool((flagp[~valid] == 0.0).all())
+    rest = _sector_held(valid) & ~valid
+    assert torch.equal(new6[:, rest], new6_p[:, rest])
     near = _near_face(new6[:3], params) | _near_face(new6_p[:3], params)
     differ = (flagp != flag_p) & valid
     assert not (differ & ~near).any()
@@ -726,9 +739,53 @@ def test_force_step_cont_matches_plain(cuda, case, form):
     valid = (p6[0] < pm.SENTINEL * 0.5) & \
         pm.interior_mask(geom, p6.device)[None]
     assert _rel(rho_new[valid], rho_p[valid]) <= 1e-5
-    assert torch.equal(rho_new[~valid], rho_p[~valid])
+    rest = _sector_held(valid) & ~valid
+    assert torch.equal(rho_new[rest], rho_p[rest])
     assert int((flagp > 0.5).sum()) >= 0.01 * state.n
     assert launched == {k: int(k == "force_step_cont") for k in before}
+
+
+@pytest.mark.parametrize("tier", ["summation", "continuity"])
+@pytest.mark.parametrize("case", INC_CASES + [FORCE_EDGE])
+def test_force_step_fill_skips_only_unread_sectors(cuda, case, tier):
+    """The fused steps' fill leaves y, z, the velocities (and rho) unwritten
+    in the sectors that hold no query, and counts them: the count equals
+    PyTorch's count of such sectors in the input planes, of every sector
+    visited.  The CUDA compact, consolidate and consolidate_rho on the
+    kernel's own outputs give the same results with those planes NaN at
+    every slot that holds no query (a superset of what is left)."""
+    params, state = _inc_scene(case)
+    geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
+    valid = (p6[0] < pm.SENTINEL * 0.5) & \
+        pm.interior_mask(geom, p6.device)[None]
+    before = sph.fill_sectors(cuda)
+    if tier == "continuity":
+        rho = _carried_rho(rho, p6, geom)
+        new6, rho_new, flagp = sph.accel_step_cont(p6, rho, occ_q, occ_s,
+                                                   params, geom)
+    else:
+        (new6, flagp), rho_new = sph.accel_step(p6, rho, occ_q, occ_s,
+                                                params, geom), None
+    skipped, seen = (a - b for a, b in zip(sph.fill_sectors(cuda), before))
+    assert seen == valid.numel() // 8
+    assert skipped == int((~_sector_held(valid)).sum()) // 8 > 0
+    bad6 = new6.clone()
+    bad6[1:, ~valid] = float("nan")
+    bad_rho = None
+    if rho_new is not None:
+        bad_rho = rho_new.clone()
+        bad_rho[~valid] = float("nan")
+    m_cap = inc.mover_capacity(state.n)
+
+    def path(n6, r):
+        extra = [] if r is None else [r]
+        movers, m, total = inc.compact([*n6, s.idp, *extra], flagp, m_cap)
+        arr = inc.arrival_planes(movers, m, params, geom)
+        cons = inc.consolidate(n6, s.idp, flagp, arr, geom, r)
+        return (movers, m, total, *cons)
+
+    for a, b in zip(path(new6, rho_new), path(bad6, bad_rho)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", INC_CASES)

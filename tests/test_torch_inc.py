@@ -633,3 +633,64 @@ def test_consolidate_stops_at_first_sentinel_rank():
     assert torch.equal(oid, torch.where(valid, s.idp, -1.0))
     assert int(tpm.occ_rowmax_plain(f6[0]).max()) \
         == int(tpm.occ_rowmax_plain(s.fields6[0]).max())
+
+
+def _contract_scene(case):
+    """A 2D, a two-x-tile 2D and a 3D scene whose particles move about a
+    third of a cell a step (numpy-seeded), so one step has movers."""
+    if case == "multi_tile":
+        tp, _ = tfs.scenes.dam_break(n=900, dim=2, jitter=0.2, seed=5,
+                                     device="cpu")
+        tp = tp.replace(bounds_min=(0.0, 0.0), bounds_max=(4.0, 1.0))
+        bx = 126 * tp.cell
+        ts = tfs.scenes.spawn_box(tp, [bx - 0.2, 0.0], [bx + 0.2, 0.25],
+                                  jitter=0.2, seed=5, device="cpu")
+    elif case == "2d":
+        tp, ts = tfs.scenes.dam_break(n=600, dim=2, jitter=0.3, seed=11,
+                                      device="cpu")
+    else:
+        tp, ts = tfs.scenes.double_dam_break(n=1200, dim=3, device="cpu")
+    rng = np.random.default_rng(5)
+    vel = rng.normal(size=tuple(ts.vel.shape)) * (0.3 * tp.cell / tp.dt)
+    return tp, tfs.make_state(ts.pos.numpy(), vel, device="cpu")
+
+
+@pytest.mark.parametrize("tier", ["summation", "continuity"])
+@pytest.mark.parametrize("case", ["2d", "multi_tile", "3d"])
+def test_mover_path_reads_no_undefined_fill(case, tier):
+    """The fused force steps leave y, z, the velocities (and rho) undefined
+    in the sectors that hold no query (csrc/force.cu): the plain step's
+    outputs with those planes NaN at every slot that holds no query, a
+    superset, give compact and consolidate the same results as the
+    unpoisoned ones, with and without the carried rho."""
+    tp, ts = _contract_scene(case)
+    geom = tpm.geometry(tp)
+    if case == "multi_tile":
+        assert geom.n_bx > 1
+    s = tinc.to_planes(ts.pos, ts.vel, ts.ids, tp, geom)
+    p6 = tpm.halo_x(s.fields6)
+    rho = tpm.halo_x(tsph.density_plain(p6[:3], tp, geom))
+    if tier == "continuity":
+        new6, rho_new, flagp = tsph.accel_step_cont_plain(p6, rho, tp, geom)
+    else:
+        (new6, flagp), rho_new = tsph.accel_step_plain(p6, rho, tp, geom), None
+    query = (p6[0] < tpm.SENTINEL * 0.5) \
+        & tpm.interior_mask(geom, p6.device)[None]
+    assert int((flagp > 0.5).sum()) > 0 and bool((~query).any())
+    bad6 = new6.clone()
+    bad6[1:, ~query] = float("nan")
+    bad_rho = None
+    if rho_new is not None:
+        bad_rho = rho_new.clone()
+        bad_rho[~query] = float("nan")
+    m_cap = tinc.mover_capacity(ts.n)
+
+    def path(n6, r):
+        extra = [] if r is None else [r]
+        movers, m, total = tinc.compact([*n6, s.idp, *extra], flagp, m_cap)
+        arr = tinc.arrival_planes(movers, m, tp, geom)
+        cons = tinc.consolidate(n6, s.idp, flagp, arr, geom, r)
+        return (movers, m, total, *cons)
+
+    for a, b in zip(path(new6, rho_new), path(bad6, bad_rho)):
+        assert torch.equal(a, b)

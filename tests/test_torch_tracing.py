@@ -238,12 +238,13 @@ def test_pallas_and_render_spans():
 
 @pytest.mark.parametrize("counter,line", [
     (sph.RING_OVERFLOWS, "  force ring overflows 0"),
-    (sph.DENSITY_RING_OVERFLOWS, "  density ring overflows 0")])
+    (sph.DENSITY_RING_OVERFLOWS, "  density ring overflows 0"),
+    (sph.FILL_SKIPPED, "  force fill skipped 0 of 0 sectors")])
 @pytest.mark.parametrize("method", ["pallas_inc", "pallas_inc_cont"])
 def test_force_ring_overflows_read_zero_on_the_cpu(method, counter, line):
-    """The force kernels' and the density sweep's ring overflows are in
-    the record of a call of the plain versions, as 0: they stage no
-    ring."""
+    """The force kernels' and the density sweep's ring overflows, and the
+    force steps' fill counters, are in the record of a call of the plain
+    versions, as 0: they stage no ring and write every slot."""
     params, state = _scene(cell_capacity=8)
     _traced(lambda: solver.run(state, params, STEPS, method=method,
                                device="cpu"))
@@ -299,6 +300,8 @@ def test_launches_lie_in_their_phase_spans(cuda, tmp_path):
         assert c["launches"][k] >= STEPS, c["launches"]
     assert c["counters"][sph.RING_OVERFLOWS] == 0
     assert c["counters"][sph.DENSITY_RING_OVERFLOWS] == 0
+    assert 0 < c["counters"][sph.FILL_SKIPPED] \
+        < c["counters"][sph.FILL_SECTORS]
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
