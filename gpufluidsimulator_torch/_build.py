@@ -48,13 +48,13 @@ SIGNATURES = {
                       _I, _I, _I, _I, _L, _F, _F, _F, _F, _I, _F, _F, _F,
                       _F, _I, _P, _I, _P],
     "fk_compact": [_P, _I, _P, _L, _P, _I, _P, _I, _P, _P],
-    "fk_consolidate": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _L, _I, _P],
+    "fk_consolidate": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _L, _I, _P],
     "fk_force_step_cont": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I, _L, _F, _F, _F, _F, _I,
                            _F, _F, _F, _F, _I, _P, _I, _I, _I, _I, _P, _P],
     "fk_consolidate_rho": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P],
+                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P],
     "fk_sweep_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 

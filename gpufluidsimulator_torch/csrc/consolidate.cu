@@ -13,12 +13,16 @@
 //       force step keeps a mover in its slot (flagged), so no valid rank
 //       follows a sentinel one;
 //   (b) then the first min(arrivals, ARRIVAL_K) movers of c, in sorted
-//       order, read through the sort permutation from the mover rows;
+//       order, read through the sort permutation from the mover rows
+//       (arrival_k: ARRIVAL_K = 8, or K past 8, inc.arrival_cap);
 //   (c) packed densely into ranks 0..K-1 of the 6 pos/vel planes and the
 //       id plane; the ranks left empty get SENTINEL, 0 and -1;
 //   (d) what did not fit is counted: max(arrivals - ARRIVAL_K, 0)
 //       + max(kept + min(arrivals, ARRIVAL_K) - K, 0), the reference's
-//       lost_dup + lost_rank (inc.py:660, 812).
+//       lost_dup + lost_rank (inc.py:660, 812);
+//   (e) where asked (fill_max not null: while a profiler session records),
+//       the largest count of particles any cell holds after (c), the step
+//       counter cell_fill_max: a warp's maximum, one atomicMax a warp.
 // Every cell that is not interior is written empty, which re-sanitizes the
 // ghost and halo slots.
 //
@@ -107,7 +111,7 @@ consolidate_kernel(const float* __restrict__ new6,
                    const int* __restrict__ starts,
                    float* __restrict__ out6, float* __restrict__ oid,
                    float* __restrict__ orho, int* __restrict__ dropped,
-                   FkGeom g, int arrival_k) {
+                   int* __restrict__ fill_max, FkGeom g, int arrival_k) {
     const int cells = (int)g.cells;
     const int k = g.k;
     const int ch = k * cells;
@@ -115,6 +119,7 @@ consolidate_kernel(const float* __restrict__ new6,
     const int row = blockIdx.x * CON_WARPS + (threadIdx.x >> 5);
     const int c0 = row * FK_LANES + lane * CON_CELLS;
     int lost = 0;
+    int fill = 0;                      // the fullest cell's count, (e)
     if (row < cells / FK_LANES) {      // warp-uniform: a warp is a row
         const int y = row % g.py;
         const int zx = row / g.py;
@@ -167,6 +172,7 @@ consolidate_kernel(const float* __restrict__ new6,
                     const int room = k - __popc(keep[e]);
                     lost += na - t + max(t - room, 0);
                     take[e] = min(t, room);
+                    fill = max(fill, k - room + take[e]);
                 }
             }
         }
@@ -241,6 +247,11 @@ consolidate_kernel(const float* __restrict__ new6,
             if (RHO) con_st4(orho + o, vrho);
         }
     }
+    if (fill_max != nullptr) {         // block-uniform
+        for (int o = 16; o > 0; o >>= 1)
+            fill = max(fill, __shfl_xor_sync(CON_FULL, fill, o));
+        if (lane == 0 && fill != 0) atomicMax(fill_max, fill);
+    }
     const int total = fk_block_sum(lost);
     if (threadIdx.x == 0 && total != 0) atomicAdd(dropped, total);
 }
@@ -251,8 +262,8 @@ static int consolidate_launch(const float* new6, const float* idp,
                               const float* movers, long long m_cap,
                               const long long* order, const int* starts,
                               float* out6, float* oid, float* orho,
-                              int* dropped, const FkGeom& g, int arrival_k,
-                              void* stream) {
+                              int* dropped, int* fill_max, const FkGeom& g,
+                              int arrival_k, void* stream) {
     // 32-bit slots: the 8 planes of K ranks, and the 8 mover channels
     if (g.k < 1 || g.k > CON_MAX_K || g.cells % FK_LANES != 0
         || 8LL * g.k * g.cells >= (1LL << 31) || 8LL * m_cap >= (1LL << 31))
@@ -267,25 +278,27 @@ static int consolidate_launch(const float* new6, const float* idp,
     consolidate_kernel<RHO><<<blocks, CON_THREADS, 0,
                               (cudaStream_t)stream>>>(
         new6, idp, rho, flag, movers, (int)m_cap, order, starts, out6, oid,
-        orho, dropped, g, arrival_k);
+        orho, dropped, fill_max, g, arrival_k);
     return (int)cudaGetLastError();
 }
 
 // movers: (7, m_cap) rows x, y, z, vx, vy, vz, id; order: (m_cap,) the
 // permutation that sorts them by target cell; starts: (cells + 1,) the
-// first sorted row of each cell.  dropped: one int, zeroed by the caller.
-// k at most 32; 8 * k * cells and 8 * m_cap below 2^31.
+// first sorted row of each cell.  dropped: one int, zeroed by the caller;
+// fill_max: null, or one int the kernel raises to the fullest cell's count
+// (atomicMax).  k at most 32; 8 * k * cells and 8 * m_cap below 2^31.
 extern "C" int fk_consolidate(const float* new6, const float* idp,
                               const float* flag, const float* movers,
                               long long m_cap, const long long* order,
                               const int* starts, float* out6, float* oid,
-                              int* dropped, int dim, int k, int nx, int ny,
-                              int nz, int n_bx, int py, int pz,
-                              long long cells, int arrival_k, void* stream) {
+                              int* dropped, int* fill_max, int dim, int k,
+                              int nx, int ny, int nz, int n_bx, int py,
+                              int pz, long long cells, int arrival_k,
+                              void* stream) {
     const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
     return consolidate_launch<false>(new6, idp, nullptr, flag, movers, m_cap,
                                      order, starts, out6, oid, nullptr,
-                                     dropped, g, arrival_k, stream);
+                                     dropped, fill_max, g, arrival_k, stream);
 }
 
 // The continuity tier's form: rho the carried density plane, movers (8,
@@ -295,12 +308,12 @@ extern "C" int fk_consolidate_rho(const float* new6, const float* idp,
                                   const float* movers, long long m_cap,
                                   const long long* order, const int* starts,
                                   float* out6, float* oid, float* orho,
-                                  int* dropped, int dim, int k, int nx,
-                                  int ny, int nz, int n_bx, int py, int pz,
-                                  long long cells, int arrival_k,
-                                  void* stream) {
+                                  int* dropped, int* fill_max, int dim,
+                                  int k, int nx, int ny, int nz, int n_bx,
+                                  int py, int pz, long long cells,
+                                  int arrival_k, void* stream) {
     const FkGeom g{dim, k, nx, ny, nz, n_bx, py, pz, cells};
     return consolidate_launch<true>(new6, idp, rho, flag, movers, m_cap,
                                     order, starts, out6, oid, orho, dropped,
-                                    g, arrival_k, stream);
+                                    fill_max, g, arrival_k, stream);
 }

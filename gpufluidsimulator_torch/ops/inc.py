@@ -47,10 +47,11 @@ from . import planes as pm
 from . import sph
 from .planes import LANES, SENTINEL, PlaneGeom, own_cid
 
-ARRIVAL_K = 8          # max same-cell arrivals taken per step (the
-# reference's K'', equal to the cell capacity K, inc.py:63): the only drop
-# condition is then "post-step cell occupancy > K", the full rebuild's
-# overflow semantics
+ARRIVAL_K = 8          # max same-cell arrivals taken per step at K <= 8
+# (the reference's K'', equal to its cell capacity K, inc.py:63): the only
+# drop condition is then "post-step cell occupancy > K", the full
+# rebuild's overflow semantics.  Past K = 8 the cap is K (arrival_cap), so
+# that it stays the only one
 TILE = 64 * LANES      # the reference's routing tile (route.TILE): the unit
 # the mover and output capacities are rounded to, so both packages size
 # their arrays alike
@@ -64,7 +65,15 @@ RESUM_EVERY = 64       # continuity tier, cont_form="rate": steps between
 # inc.py:70); "sum" and "relax" re-anchor in the sweep and resum only at
 # age 0.  Read at call time, so it can be patched.
 STEP_COUNTERS = ("movers", "flagged", "drops_cell_capacity",
-                 "seam_movers")   # a step's tallies (utils/profiling)
+                 "seam_movers", "cell_fill_max")   # a step's tallies
+# (utils/profiling, which keeps cell_fill_max as a maximum)
+
+
+def arrival_cap(geom: PlaneGeom) -> int:
+    """Same-cell arrivals a step takes: ARRIVAL_K, or K where the cell
+    capacity is larger.  With at least K of them a cell drops only what
+    its K ranks cannot hold, whichever arrivals those are."""
+    return max(ARRIVAL_K, geom.k)
 
 
 def mover_capacity(n: int) -> int:
@@ -263,13 +272,15 @@ def arrival_planes(movers, m, params: SimParams, geom: PlaneGeom,
 
 
 def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
-                      rhop=None):
+                      rhop=None, fill_max=None):
     """-> (fields6, idp, dropped): per cell, the kept ranks (valid, interior,
     not flagged; ranks past the first sentinel one are not read) in rank
-    order, then up to ARRIVAL_K arrivals, packed into K dense ranks; empty
-    ranks get SENTINEL, 0 and -1.  With ``rhop`` (the continuity tier; the
-    movers then carry rho in row 7) -> (fields6, idp, rho, dropped), empty
-    ranks' rho 0."""
+    order, then up to ``arrival_cap`` arrivals, packed into K dense ranks;
+    empty ranks get SENTINEL, 0 and -1.  With ``rhop`` (the continuity
+    tier; the movers then carry rho in row 7) -> (fields6, idp, rho,
+    dropped), empty ranks' rho 0.  ``fill_max`` (a () int32 tensor, or
+    None) is raised in place to the largest count of particles any cell
+    holds after."""
     k, cells = geom.k, geom.cells
     dev = new6.device
     inter = pm.interior_mask(geom, dev).reshape(1, cells)
@@ -289,9 +300,10 @@ def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
     live = cid_s < cells
     cid_c = torch.clamp_max(cid_s, cells - 1)
     dup = torch.arange(cap, device=dev) - arr.starts[cid_c]
-    ok = live & (dup < ARRIVAL_K)
-    arr_ext = torch.zeros((nf, ARRIVAL_K, cells), device=dev)
-    valid_a = torch.zeros((ARRIVAL_K, cells), dtype=torch.bool, device=dev)
+    a_k = arrival_cap(geom)
+    ok = live & (dup < a_k)
+    arr_ext = torch.zeros((nf, a_k, cells), device=dev)
+    valid_a = torch.zeros((a_k, cells), dtype=torch.bool, device=dev)
     rows = arr.movers[:, arr.order[ok]]
     arr_ext[:, dup[ok], cid_c[ok]] = rows
     valid_a[dup[ok], cid_c[ok]] = True
@@ -301,6 +313,9 @@ def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
     keep = valid & (rank < k)
     dropped = (torch.sum(live & ~ok) + torch.sum(valid & ~keep)) \
         .to(torch.int32)
+    if fill_max is not None:
+        fill_max.copy_(torch.maximum(
+            fill_max, torch.amax(torch.sum(keep, dim=0)).to(torch.int32)))
     fill = torch.tensor([SENTINEL] * 3 + [0.0] * 3 + [-1.0, 0.0][:nf - 6],
                         device=dev)
     out = fill[:, None, None].repeat(1, k, cells)
@@ -314,15 +329,18 @@ def consolidate_plain(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
 
 
 def consolidate(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
-                rhop=None):
+                rhop=None, fill_max=None):
     """Per-cell consolidation: the CUDA kernel ``consolidate`` on the card,
     the plain version for CPU tensors.  Returns (fields6, idp, dropped),
-    dropped = sum over cells of max(arrivals - ARRIVAL_K, 0)
-    + max(kept + min(arrivals, ARRIVAL_K) - K, 0), a () int32 tensor.
-    With ``rhop`` (movers of 8 rows): the kernel ``consolidate_rho``, and
-    (fields6, idp, rho, dropped)."""
+    dropped = sum over cells of max(arrivals - A, 0)
+    + max(kept + min(arrivals, A) - K, 0), A = ``arrival_cap(geom)``, a ()
+    int32 tensor.  With ``rhop`` (movers of 8 rows): the kernel
+    ``consolidate_rho``, and (fields6, idp, rho, dropped).  ``fill_max``:
+    None, or a () int32 tensor raised in place to the largest count of
+    particles any cell holds after (the step counter ``cell_fill_max``;
+    the kernel then adds one atomicMax a warp, and nothing without it)."""
     if new6.device.type == "cpu":
-        return consolidate_plain(new6, idp, flagp, arr, geom, rhop)
+        return consolidate_plain(new6, idp, flagp, arr, geom, rhop, fill_max)
     shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
     _build.check_tensor(new6, "new6", torch.float32, (6,) + shape)
     _build.check_tensor(idp, "idp", torch.float32, shape)
@@ -343,9 +361,13 @@ def consolidate(new6, idp, flagp, arr: Arrivals, geom: PlaneGeom,
                              "planes and starts must be 16-byte aligned")
     out6 = torch.empty_like(new6)
     oid = torch.empty_like(idp)
+    if fill_max is not None:
+        _build.check_tensor(fill_max, "fill_max", torch.int32, ())
     dropped = torch.zeros((), dtype=torch.int32, device=new6.device)
-    tail = [_build.ptr(dropped), *sph._geom_args(geom),
-            ctypes.c_int(ARRIVAL_K)]
+    tail = [_build.ptr(dropped),
+            ctypes.c_void_p(None) if fill_max is None
+            else _build.ptr(fill_max),
+            *sph._geom_args(geom), ctypes.c_int(arrival_cap(geom))]
     if rhop is None:
         _build.launch("consolidate", new6,
                       _build.ptr(new6), _build.ptr(idp), _build.ptr(flagp),
@@ -508,10 +530,12 @@ def step_phases(state: IncState, params: SimParams, geom: PlaneGeom,
         mig_overflow = mig_overflow + lost
     with profiling.span("inc.consolidate"):
         arr = arrival_planes(movers, m, params, geom, x_origin, live)
+        fill = torch.zeros((), dtype=torch.int32, device=flagp.device) \
+            if profiling.recording() else None
         *cons, dropped = consolidate(new6, state.idp, flagp, arr, geom,
-                                     rho_new)
+                                     rho_new, fill)
         overflow = state.overflow + (staged_total - m) + dropped
-        profiling.tally(STEP_COUNTERS, m, staged_total, dropped, seam)
+        profiling.tally(STEP_COUNTERS, m, staged_total, dropped, seam, fill)
     return IncState(fields6=cons[0], idp=cons[1], overflow=overflow,
                     mig_overflow=mig_overflow,
                     rhop=cons[2] if continuity else None,

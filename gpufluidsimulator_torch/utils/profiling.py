@@ -34,9 +34,12 @@ staged planes past their ring's capacity, ``sph.RING_OVERFLOWS`` and
 fused force steps' fill left unwritten, holding no query, and those it
 visited: ``sph.FILL_SKIPPED``, ``sph.FILL_SECTORS``), ``seam_movers`` (the
 movers whose arrival cell lies in another x tile than the slot they left,
-``inc.seam_movers``; 0 on planes of one tile); ``drops_mover_capacity``
-is ``flagged - movers``.  A call also holds its steps (the count of its step
-spans) and its launches of each hand-written kernel
+``inc.seam_movers``; 0 on planes of one tile), ``cell_fill_max`` (the
+largest count of particles any cell holds after a step's consolidation,
+raised by ``consolidate``'s kernel itself); ``drops_mover_capacity``
+is ``flagged - movers``.  A counter of ``MAX_COUNTERS`` keeps the largest
+of its tallies, every other their sum.  A call also holds its steps (the
+count of its step spans) and its launches of each hand-written kernel
 (``_build.launches``).
 """
 
@@ -133,6 +136,7 @@ MAX_CALLS = 4096       # calls the record keeps, the newest
 FOLD_EVERY = 256       # tallies a call keeps per device before it adds
 #                        them up (three device ops)
 _NULL = contextlib.nullcontext()
+MAX_COUNTERS = frozenset({"cell_fill_max"})   # kept as a maximum, not a sum
 
 
 class _Call:
@@ -156,8 +160,15 @@ class _Call:
             self._fold(k)
 
     def _fold(self, k):
-        s = torch.stack(self.pending.pop(k)).sum(0, dtype=torch.int64)
-        self.totals[k] = self.totals[k] + s if k in self.totals else s
+        keys = k[0]
+        v = torch.stack(self.pending.pop(k)).to(torch.int64)
+        if k in self.totals:
+            v = torch.cat([v, self.totals[k][None]])
+        s = v.sum(0)
+        for i, key in enumerate(keys):
+            if key in MAX_COUNTERS:
+                s[i] = v[:, i].amax()
+        self.totals[k] = s
 
     def close(self):
         self.launches = {name: n - self.launches.get(name, 0)
@@ -265,7 +276,10 @@ def _read_counters(pending_calls) -> None:
         i = 0
         for call, keys, _ in items:
             for key in keys:
-                call.counters[key] = call.counters.get(key, 0) + flat[i]
+                old = call.counters.get(key)
+                call.counters[key] = flat[i] if old is None else (
+                    max(old, flat[i]) if key in MAX_COUNTERS
+                    else old + flat[i])
                 i += 1
     for call in pending_calls:
         call.totals.clear()
@@ -290,9 +304,9 @@ def take_calls() -> List[dict]:
 def format_calls(entries: List[dict]) -> List[str]:
     """Lines of text for ``calls()``' entries: per call each span's count,
     host ms and self ms, the movers a step (and those across an x tile
-    seam), the drops by cause, the force kernels' and the density sweep's
-    ring overflows, the sectors the force steps' fill skipped and the
-    launches by kernel."""
+    seam), the drops by cause, the fullest cell, the force kernels' and the
+    density sweep's ring overflows, the sectors the force steps' fill
+    skipped and the launches by kernel."""
     lines = []
     for i, e in enumerate(entries):
         lines.append(f"call {i}: {e['name']}, {e['steps']} steps")
@@ -316,6 +330,8 @@ def format_calls(entries: List[dict]) -> List[str]:
             if f"{sweep}_ring_overflows" in c:
                 lines.append(f"  {sweep} ring overflows "
                              f"{c[f'{sweep}_ring_overflows']}")
+        if "cell_fill_max" in c:
+            lines.append(f"  fullest cell {c['cell_fill_max']} particles")
         if "force_fill_sectors" in c:
             skipped, seen = c["force_fill_skipped"], c["force_fill_sectors"]
             share = f" ({100.0 * skipped / seen:.2f}%)" if seen else ""

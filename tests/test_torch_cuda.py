@@ -499,6 +499,24 @@ def _check_consolidate(new6, idp, flagp, movers8, m, rho, params, geom):
     return got, got8, arr8
 
 
+def _check_fill_max(new6, idp, flagp, arr8, rho, geom, got, got8):
+    """Asked for the fullest cell (``fill_max``, the step counter
+    ``cell_fill_max``), consolidate and consolidate_rho give their plain
+    versions' count and the outputs they give unasked (``got``,
+    ``got8``).  Returns the count."""
+    arr7 = arr8._replace(movers=arr8.movers[:7].contiguous())
+    counts = set()
+    for arr, rhop, outs in ((arr7, None, got), (arr8, rho, got8)):
+        for fn in (inc.consolidate, inc.consolidate_plain):
+            fill = torch.zeros((), dtype=torch.int32, device=new6.device)
+            for a, b in zip(fn(new6, idp, flagp, arr, geom, rhop, fill),
+                            outs):
+                assert torch.equal(a, b)
+            counts.add(int(fill))
+    assert len(counts) == 1, counts
+    return counts.pop()
+
+
 # the cases with an interior row that holds no particle and receives none
 # (the 3D scenes' 12-cell rows all hold some)
 EMPTY_WARP_CASES = ("2d", "multi_tile", FORCE_EDGE)
@@ -554,11 +572,12 @@ def test_inc_kernels_match_plain(cuda, case):
 @pytest.mark.parametrize("case,capacity", [("2d", 2), ("multi_tile", 2),
                                            ("3d_k16", 16)])
 def test_consolidate_forced_drops_match_plain(cuda, case, capacity):
-    """Twelve movers sent into one cell: drops from arrivals beyond
-    ARRIVAL_K and, at cell capacity 2, from ranks beyond K, equal to the
-    plain version's, in both forms (the movers carry the density as the
-    carried rho); 2D, across x tiles, and at K = 16 in 3D; one cell's only
-    kept rank after a flagged one."""
+    """Twelve movers sent into one cell: drops from arrivals beyond the
+    arrival cap (``inc.arrival_cap``: ARRIVAL_K, K past it) and, at cell
+    capacity 2, from ranks beyond K, equal to the plain version's, in both
+    forms (the movers carry the density as the carried rho), and the
+    fullest cell asked for as well; 2D, across x tiles, and at K = 16 in
+    3D; one cell's only kept rank after a flagged one."""
     params, state = _inc_scene(case)
     params = params.replace(cell_capacity=capacity)
     geom, s, p6, rho, occ_q, occ_s = _inc_inputs(params, state, cuda)
@@ -569,10 +588,14 @@ def test_consolidate_forced_drops_match_plain(cuda, case, capacity):
     assert int(m) > 12
     movers8[:params.dim, :12] = torch.tensor(
         [0.5 * params.cell] * params.dim, device=cuda)[:, None]
-    got, got8, _ = _check_consolidate(new6, s.idp, flagp, movers8, m, rho,
-                                      params, geom)
+    got, got8, arr8 = _check_consolidate(new6, s.idp, flagp, movers8, m,
+                                         rho, params, geom)
     assert int(got[2]) == int(got8[3]) >= 12 - min(capacity,
-                                                   inc.ARRIVAL_K)
+                                                   inc.arrival_cap(geom))
+    # the crowded cell is the fullest: full at K = 2, holding all 12
+    # arrivals or full at K = 16
+    fill = _check_fill_max(new6, s.idp, flagp, arr8, rho, geom, got, got8)
+    assert min(capacity, 12) <= fill <= capacity
 
 
 # occupancy bounds: the solver scenes, and numpy-seeded sparse planes with

@@ -177,7 +177,8 @@ def test_inc_run_records_one_call(tmp_path, monkeypatch, m_cap):
 
 def test_counters_add_up_across_folds(monkeypatch):
     """Tallies past FOLD_EVERY are added up on the device, and read the
-    same."""
+    same; ``cell_fill_max`` is kept as the largest of its tallies, across
+    folds too."""
     params, state = _scene()
     monkeypatch.setattr(profiling, "FOLD_EVERY", 2)
     _traced(lambda: solver.run(state, params, STEPS, method="pallas_inc",
@@ -187,6 +188,14 @@ def test_counters_add_up_across_folds(monkeypatch):
     c = profiling.take_calls()[0]["counters"]
     assert c["movers"] == movers
     assert c["drops_cell_capacity"] + c["drops_mover_capacity"] == overflow
+    geom = pm.geometry(params)
+    s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
+    fills = []
+    for _ in range(STEPS):
+        s, _ = _traced(lambda: inc.step_planes(s, params, geom,
+                                               inc.mover_capacity(state.n)))
+        fills.append(profiling.take_calls()[0]["counters"]["cell_fill_max"])
+    assert c["cell_fill_max"] == max(fills) > 0
 
 
 def test_sharded_spans_nest(tmp_path):
